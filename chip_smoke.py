@@ -1,0 +1,384 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (ma_tpu_torch) on one NVIDIA GPU.
+
+Run from the repository root:
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and exits non-zero before the last line):
+  1. card: name and power limit, as nvidia-smi reports them;
+  2. build: nvcc compiles ma_tpu_torch/csrc/*.cu for sm_90a into
+     ma_tpu_torch/_build/;
+  3. kernels: each CUDA kernel of the main path against its plain PyTorch
+     version on the same CUDA inputs at main-path shapes (exact equality),
+     with both times (CUDA events);
+  4. slice: the bench.py workload at E. coli K-12 size (random 4,641,652 bp
+     genome, 16,384 x 150 bp reads at 1% substitutions, half reverse
+     complemented, batch 4096) through Aligner(device="cuda").align_to_sam:
+     reads/s (median of 3 passes after a warm-up), each kernel's launches
+     in those passes, and the share of reads placed at their simulated
+     position and strand (must be >= 99%);
+  5. cross-check: the first 512 reads through the same port on
+     device="cpu" must give byte-identical SAM.
+
+The line before the last is the kernels' JSON record; the last line is
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+No JAX is imported.
+"""
+from __future__ import annotations
+
+import argparse
+import io
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+PLACE_TOL = 10  # bp between the primary record's POS and the simulated start
+GENOME_BP = 4_641_652  # E. coli K-12 MG1655
+N_READS, READ_LEN, BATCH = 16_384, 150, 4096  # bench.py's workload
+CHECK_READS = 512  # reads cross-checked against the CPU port
+PASSES = 3
+
+
+def card_line() -> str:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return res.stdout.strip().splitlines()[0]
+
+
+def simulate(genome_len: int, n_reads: int, read_len: int, seed: int = 1234):
+    """The bench.py workload: random genome, reads at 1% substitutions,
+    odd reads reverse complemented. Returns (pack, reads, starts)."""
+    from ma_tpu.containers.nucseq import NucSeq, decode_seq, revcomp_codes
+    from ma_tpu.containers.pack import Pack
+
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, size=genome_len).astype(np.uint8)
+    pack = Pack.empty()
+    pack.append("bench", genome)
+    reads, starts = [], []
+    for i in range(n_reads):
+        p = int(rng.integers(0, genome_len - read_len))
+        codes = genome[p : p + read_len].copy()
+        for j in np.nonzero(rng.random(read_len) < 0.01)[0]:
+            codes[j] = (codes[j] + rng.integers(1, 4)) % 4
+        if i % 2:
+            codes = revcomp_codes(codes)
+        reads.append(NucSeq.from_str(decode_seq(codes), name=f"r{i}"))
+        starts.append(p)
+    return pack, reads, np.asarray(starts)
+
+
+def time_ms(fn, reps: int) -> float:
+    """Mean wall time of fn() on the card, by CUDA events, after one warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def max_abs_err(a, b) -> int:
+    """Largest |a - b| over matching integer/bool outputs (0 = equal)."""
+    err = 0
+    for x, y in zip(a, b):
+        if x.shape != y.shape:
+            raise AssertionError(f"shape mismatch {tuple(x.shape)} vs {tuple(y.shape)}")
+        if x.numel():
+            err = max(err, int((x.long() - y.long()).abs().max()))
+    return err
+
+
+def soc_inputs(aligner, reads, dev):
+    """Kernel A's operands from the first batch of the slice (minimizer
+    seeds -> lumping -> min length -> SoC candidate table)."""
+    import torch
+
+    from ma_tpu_torch.index.minimizer import minimizer_seeding
+    from ma_tpu_torch.ops.filters import min_length, seed_lump
+    from ma_tpu_torch.ops.soc import soc_candidates
+    from ma_tpu_torch.pipeline.aligner import DeviceStageConfig, _soc_min_score
+
+    seqs, lens = aligner._pad_batch(reads, len(reads))
+    cfg = DeviceStageConfig.from_params(aligner.pset, seqs.shape[1])
+    seqs_d = torch.as_tensor(seqs, device=dev)
+    lens_d = torch.as_tensor(lens, device=dev)
+    L = aligner.pack.unpacked_size_forward_strand
+    seeds = minimizer_seeding(aligner.mmi_dev(cfg), seqs_d, lens_d, aligner.contig_starts,
+                              L, k=cfg.mm_k, w=cfg.mm_w, max_occ=cfg.max_ambiguity,
+                              max_seeds=cfg.max_seeds, rectangular=cfg.rectangular)
+    seeds = min_length(seed_lump(seeds), cfg.min_seed_len)
+    sd, cand, min_score = soc_candidates(
+        seeds, lens_d, aligner.contig_starts, cfg.match, cfg.extend, cfg.gap,
+        cfg.fixed_soc_width, cfg.rectangular, _soc_min_score(cfg, lens_d, 2 * L),
+    )
+    return cand, sd.n_seeds.contiguous(), min_score, cfg.max_socs_collect
+
+
+def linesweep_inputs(rng, R: int, M: int, dev):
+    """Kernel B's operands: R rows of M shadow elements in processing order
+    (start asc, end desc), float32 distances with ties, ~10% invalid."""
+    import torch
+
+    starts = rng.integers(0, 150, (R, M))
+    ends = starts + rng.integers(15, 60, (R, M))
+    order = np.lexsort((-ends, starts), axis=-1)
+    dist = (rng.integers(0, 16, (R, M)) * 0.25 + (rng.random((R, M)) < 0.3)
+            * rng.random((R, M))).astype(np.float32)
+    valid = (rng.random((R, M)) > 0.1).astype(np.int32)
+    t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=dev)
+    return (t(np.take_along_axis(ends, order, 1), torch.int32), t(dist, torch.float32),
+            t(valid, torch.int32), t(order, torch.int32))
+
+
+def dp_inputs(rng, P: int, M: int, N: int, is_global: bool, dev):
+    """Kernel C's operands: P problems of one (M, N) bucket. Targets are
+    mutated copies of the queries (3% substitutions, 1% indels, 1% N) with
+    random flanks; extension problems use the 512 extension band and flag
+    every eighth problem for a last-row traceback."""
+    import torch
+
+    q = np.full((P, M), 4, np.int32)
+    t = np.full((P, N), 4, np.int32)
+    qlen = rng.integers(1, M + 1, P)
+    tlen = np.zeros(P, np.int64)
+    for p in range(P):
+        qs = rng.integers(0, 4, qlen[p])
+        qs[rng.random(qlen[p]) < 0.01] = 4
+        q[p, : qlen[p]] = qs
+        r = rng.random(qlen[p])
+        keep = r >= 0.005  # the rest are deleted from the target
+        ts = np.where(r < 0.035, rng.integers(0, 4, qlen[p]), qs)[keep]
+        ins = np.flatnonzero((r > 0.995)[keep]) + 1
+        ts = np.insert(ts, ins, rng.integers(0, 4, len(ins)))  # insertions
+        ts = np.concatenate([ts, rng.integers(0, 4, rng.integers(0, N))]).astype(np.int32)
+        n = max(1, min(N, len(ts) if not is_global else int(rng.integers(1, N + 1))))
+        t[p, : min(n, len(ts))] = ts[:n]
+        tlen[p] = n
+    band = (np.maximum(20, np.abs(tlen - qlen) + 10) if is_global
+            else np.full(P, 512))
+    tb_last = np.where(is_global, 0, (np.arange(P) % 8) == 0)
+    tt = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int32, device=dev)
+    return tt(q), tt(t), tt(qlen), tt(tlen), tt(band), tt(tb_last)
+
+
+def kernel_phase(aligner, reads, dev, records):
+    from ma_tpu_torch.ops.dp import DPParams, run_capacity
+    from ma_tpu_torch.ops.dp_fused import banded_align_runs, banded_align_runs_plain
+    from ma_tpu_torch.ops.harmonize_cuda import linesweep_sorted, linesweep_sorted_plain
+    from ma_tpu_torch.ops.soc_cuda import soc_sweep, soc_sweep_plain
+
+    rng = np.random.default_rng(7)
+    # ---- A: SoC sweep at S = 256, B = 4096, K = 32
+    cand, n, min_score, K = soc_inputs(aligner, reads, dev)
+    got = soc_sweep(cand, n, min_score, K)
+    ref = soc_sweep_plain(cand, n, min_score, K)
+    err = max_abs_err(got, ref)
+    ms = time_ms(lambda: soc_sweep(cand, n, min_score, K), 10)
+    pms = time_ms(lambda: soc_sweep_plain(cand, n, min_score, K), 1)
+    print(f"kernel soc_sweep: cand {tuple(cand.shape)} K={K} max_abs_err={err} "
+          f"kernel {ms:.3f} ms plain {pms:.3f} ms", flush=True)
+    if err:
+        raise AssertionError(f"soc_sweep differs from its plain version: {err}")
+    records["soc_sweep"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+
+    # ---- B: line sweep at R = 4096 reads x 8 SoCs x 2 strands, M = 64
+    total_err, ms_sum, pms_sum = 0, 0.0, 0.0
+    for R, M in ((65536, 64), (512, 2048)):
+        ops = linesweep_inputs(rng, R, M, dev)
+        err = max_abs_err([linesweep_sorted(*ops)], [linesweep_sorted_plain(*ops)])
+        ms = time_ms(lambda: linesweep_sorted(*ops), 10)
+        pms = time_ms(lambda: linesweep_sorted_plain(*ops), 1)
+        print(f"kernel linesweep: R={R} M={M} max_abs_err={err} kernel {ms:.3f} ms "
+              f"plain {pms:.3f} ms", flush=True)
+        if err:
+            raise AssertionError(f"linesweep differs from its plain version (M={M})")
+        if M == 64:  # the main-path shape goes in the record
+            total_err, ms_sum, pms_sum = err, ms, pms
+    records["linesweep"] = dict(max_abs_err=total_err, ms=ms_sum, plain_ms=pms_sum)
+
+    # ---- C: fused DP at every (M, N) bucket, P = 4096, both modes
+    params = DPParams()
+    total_err, ms_sum, pms_sum = 0, 0.0, 0.0
+    for M, N in ((32, 128), (64, 128), (256, 128), (64, 768), (256, 768)):
+        for is_global in (True, False):
+            q, t, ql, tl, bd, tb = dp_inputs(rng, 4096, M, N, is_global, dev)
+            kw = dict(M=M, N=N, params=params, zdrop=-1 if is_global else 200,
+                      is_global=is_global, tb_last=tb, R=run_capacity(M))
+            got = banded_align_runs(q, t, ql, tl, bd, **kw)
+            ref = banded_align_runs_plain(q, t, ql, tl, bd, **kw)
+            err = max_abs_err(got, ref)
+            ms = time_ms(lambda: banded_align_runs(q, t, ql, tl, bd, **kw), 5)
+            pms = time_ms(lambda: banded_align_runs_plain(q, t, ql, tl, bd, **kw), 1)
+            over = int(got[1][5].sum())
+            print(f"kernel dp_fused: P=4096 M={M} N={N} global={is_global} "
+                  f"run_overflows={over} max_abs_err={err} kernel {ms:.3f} ms "
+                  f"plain {pms:.3f} ms", flush=True)
+            if err:
+                raise AssertionError(f"dp_fused differs from its plain version at {M}x{N}")
+            total_err = max(total_err, err)
+            ms_sum += ms
+            pms_sum += pms
+    print("kernel dp_fused: record ms / plain_ms are sums over the 10 bucket x mode cases")
+    records["dp_fused"] = dict(max_abs_err=total_err, ms=ms_sum, plain_ms=pms_sum)
+
+
+def placement(sam: str, starts: np.ndarray) -> float:
+    """Share of reads whose primary record is at the simulated start
+    (within PLACE_TOL) on the simulated strand."""
+    placed = 0
+    for line in sam.splitlines():
+        if line.startswith("@"):
+            continue
+        f = line.split("\t", 4)
+        flag = int(f[1])
+        if flag & 0x904:
+            continue
+        i = int(f[0][1:])
+        if abs(int(f[3]) - 1 - int(starts[i])) <= PLACE_TOL and bool(flag & 16) == bool(i % 2):
+            placed += 1
+    return placed / len(starts)
+
+
+def profile_pass(aligner, reads, wall_s: float) -> None:
+    """One more pass under torch.profiler: the ops by device time, and the
+    device's busy time against `wall_s`, the median unprofiled pass."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        aligner.align_to_sam(iter(reads), io.StringIO(), batch_size=BATCH)
+        torch.cuda.synchronize()
+    print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25))
+    # the device's own events (kernels, copies, sets), as the table's total
+    # counts them: this includes kernels launched outside any torch op
+    busy_ms = sum(e.self_device_time_total for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e3
+    print(f"profile: device busy {busy_ms:.1f} ms per pass = {busy_ms / (wall_s * 1e3):.1%} "
+          f"of the {wall_s * 1e3:.1f} ms unprofiled pass (idle share "
+          f"{1 - busy_ms / (wall_s * 1e3):.1%})", flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="also run one pass under torch.profiler")
+    args = ap.parse_args()
+
+    import torch
+
+    from ma_tpu.utils.profile import AnalyzeRuntimes
+    from ma_tpu_torch import kernels
+    from ma_tpu_torch.pipeline.aligner import Aligner
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    print(card_line(), flush=True)
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}", flush=True)
+
+    t0 = time.perf_counter()
+    so = kernels.build()
+    kernels.library()
+    print(f"build: {so.name} in {time.perf_counter() - t0:.1f} s", flush=True)
+    for line in so.with_suffix(".log").read_text().splitlines():
+        if "registers" in line or "spill" in line:
+            print("ptxas:", line.strip())
+
+    t0 = time.perf_counter()
+    pack, reads, starts = simulate(GENOME_BP, N_READS, READ_LEN)
+    print(f"workload: genome {GENOME_BP} bp, {len(reads)} reads "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    aligner = Aligner(pack, device=dev)
+    aligner.pset.set("Seeding Technique", "minimizers")
+
+    # ---- warm-up: index build + upload, the native libraries, one batch
+    t0 = time.perf_counter()
+    aligner.align_to_sam(iter(reads[:BATCH]), io.StringIO(), batch_size=BATCH)
+    torch.cuda.synchronize()
+    print(f"warm-up: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    records: dict = {}
+    kernel_phase(aligner, reads[:BATCH], dev, records)
+
+    # ---- slice: the main path, counted
+    for k in kernels.KERNELS:
+        k.launches = 0
+    walls, sam = [], ""
+    for _ in range(PASSES):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        n = aligner.align_to_sam(iter(reads), buf, batch_size=BATCH)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        sam = buf.getvalue()
+        if n != len(reads):
+            raise AssertionError(f"align_to_sam returned {n} of {len(reads)} reads")
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    rps = len(reads) / statistics.median(walls)
+    share = placement(sam, starts)
+    print(f"slice: walls {['%.3f' % w for w in walls]} s, {rps:.1f} reads/s (median), "
+          f"placed {share:.4%}, overflow reads {aligner.n_overflow_reads}, "
+          f"rescued {aligner.n_rescued_reads}", flush=True)
+    print(f"slice launches: {json.dumps(launches)}", flush=True)
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    if share < 0.99:
+        raise AssertionError(f"placement {share:.4%} < 99%")
+
+    # ---- host-clock stage breakdown of one more pass (not counted above)
+    aligner.profiler = AnalyzeRuntimes()
+    aligner.align_to_sam(iter(reads), io.StringIO(), batch_size=BATCH)
+    torch.cuda.synchronize()
+    print(aligner.profiler.analyze())
+    aligner.profiler = None
+    if args.profile:
+        profile_pass(aligner, reads, statistics.median(walls))
+
+    # ---- cross-check against the CPU port
+    sub = reads[:CHECK_READS]
+    gpu_sam = io.StringIO()
+    aligner.align_to_sam(iter(sub), gpu_sam, batch_size=BATCH)
+    t0 = time.perf_counter()
+    cpu = Aligner(pack, device="cpu")
+    cpu.pset.set("Seeding Technique", "minimizers")
+    cpu_sam = io.StringIO()
+    cpu.align_to_sam(iter(sub), cpu_sam, batch_size=BATCH)
+    same = gpu_sam.getvalue() == cpu_sam.getvalue()
+    print(f"cross-check: {len(sub)} reads, CPU port {time.perf_counter() - t0:.1f} s, "
+          f"SAM {len(cpu_sam.getvalue())} bytes, identical={same}", flush=True)
+    if not same:
+        a, b = gpu_sam.getvalue().splitlines(), cpu_sam.getvalue().splitlines()
+        diff = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        raise AssertionError(f"GPU and CPU SAM differ at line {diff}")
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
+
+    out = []
+    for k in kernels.KERNELS:
+        out.append(dict(name=k.name, route="cuda", source=k.source, replaces=k.replaces,
+                        launches=launches[k.name], **records[k.name]))
+    print(json.dumps({"kernels": out}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,26 @@
+"""ma_tpu_torch — the PyTorch/CUDA port of ma_tpu for one NVIDIA H100.
+
+The JAX package `ma_tpu` stays the reference; every module here mirrors its
+counterpart there (`ma_tpu_torch/ops/soc.py` <-> `ma_tpu/ops/soc.py`, ...).
+Each Pallas kernel of the ported path is a hand-written CUDA C++ kernel
+under `csrc/`, built with nvcc on first use and bound with ctypes
+(`ma_tpu_torch/kernels.py`); beside each sits its plain PyTorch version,
+which a wrapper runs only for tensors on the CPU.
+
+Nothing here imports jax. Every entry point that allocates takes an explicit
+`device`; there is no default device.
+
+Ported slice: single-end reads, `Seeding Technique = minimizers`,
+`Aligner.align_to_sam` (see README.md, "PyTorch/CUDA port").
+"""
+
+__version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # lazy: importing the package must not pull in the whole pipeline
+    if name == "Aligner":
+        from ma_tpu_torch.pipeline.aligner import Aligner
+
+        return Aligner
+    raise AttributeError(name)

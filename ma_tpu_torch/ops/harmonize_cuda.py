@@ -1,0 +1,81 @@
+"""Harmonization shadow line sweep: kernel B (csrc/linesweep.cu) and its
+plain PyTorch version (port of ma_tpu/ops/harmonize_pallas.py and of the
+`_linesweep` scan in ma_tpu/ops/harmonize.py:212).
+
+Elements arrive presorted by (start asc, end desc). A per-row stack of
+(end, dist, seed) entries either grows (the element's end passes every end
+seen so far), replaces the suffix of entries whose end is >= the element's
+(when none of them is closer, dist <= the element's), or kills the element.
+The output is the survivor mask at the elements' ORIGINAL positions.
+`dist` is float32 and both versions compare the same float32 values.
+"""
+from __future__ import annotations
+
+import torch
+
+from ma_tpu_torch import kernels
+
+BIG = 2**30
+
+
+def linesweep_sorted_plain(s_end, s_dist, s_valid, s_orig):
+    """s_end/s_orig int32 [R, M], s_dist float32 [R, M], s_valid [R, M]
+    (bool or int) in processing order -> survivors bool [R, M] at original
+    positions. The rows advance in lockstep over the element index."""
+    R, M = s_end.shape
+    dev = s_end.device
+    s_valid = s_valid.bool()
+    st_end = torch.full((R, M), BIG, dtype=torch.int32, device=dev)
+    st_dist = torch.zeros((R, M), dtype=torch.float32, device=dev)
+    st_seed = torch.full((R, M), -1, dtype=torch.int32, device=dev)
+    sp = torch.zeros(R, dtype=torch.int64, device=dev)
+    x = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    pos = torch.arange(M, device=dev)[None, :]
+    for j in range(M):
+        e, d = s_end[:, j], s_dist[:, j]
+        si, va = s_orig[:, j], s_valid[:, j]
+        ge = (pos < sp[:, None]) & (st_end >= e[:, None])
+        suffix_pos = torch.where(ge.any(1), torch.argmax(ge.to(torch.int32), 1), sp)
+        grow = e > x
+        any_closer = (ge & (st_dist <= d[:, None])).any(1)
+        do_push = va & (grow | ~any_closer)
+        put = torch.where(grow, sp, suffix_pos)
+        oh = (pos == put[:, None]) & do_push[:, None]
+        st_end = torch.where(oh, e[:, None], st_end)
+        st_dist = torch.where(oh, d[:, None], st_dist)
+        st_seed = torch.where(oh, si[:, None], st_seed)
+        new_sp = torch.where(do_push, put + 1, sp)
+        # entries past the push position die (suffix replacement)
+        kill = (pos >= new_sp[:, None]) & (pos < sp[:, None])
+        st_end = torch.where(kill, BIG, st_end)
+        st_seed = torch.where(kill, -1, st_seed)
+        x = torch.where(va, torch.maximum(x, e), x)
+        sp = new_sp
+    alive = (pos < sp[:, None]) & (st_seed >= 0)
+    hits = torch.zeros((R, M), dtype=torch.int32, device=dev)
+    hits.scatter_add_(1, st_seed.clamp(min=0).long(), alive.to(torch.int32))
+    return hits > 0
+
+
+def linesweep_sorted(s_end, s_dist, s_valid, s_orig):
+    """The sweep on the tensors' device: the plain version for CPU tensors,
+    kernel B for CUDA tensors. Same contract as `linesweep_sorted_plain`."""
+    if s_end.device.type == "cpu":
+        return linesweep_sorted_plain(s_end, s_dist, s_valid, s_orig)
+    R, M = s_end.shape
+    s_valid = s_valid.to(torch.int32).contiguous()
+    kernels.check(s_end, "s_end", torch.int32, (R, M))
+    kernels.check(s_dist, "s_dist", torch.float32, (R, M))
+    kernels.check(s_valid, "s_valid", torch.int32, (R, M))
+    kernels.check(s_orig, "s_orig", torch.int32, (R, M))
+    dev = s_end.device
+    surv = torch.empty((R, M), dtype=torch.uint8, device=dev)
+    # per-row stacks in global scratch, [M, R] so the rows' threads touch
+    # neighbouring words
+    st_end = torch.empty((M, R), dtype=torch.int32, device=dev)
+    st_dist = torch.empty((M, R), dtype=torch.float32, device=dev)
+    st_seed = torch.empty((M, R), dtype=torch.int32, device=dev)
+    if R:
+        kernels.LINESWEEP.launch(s_end, s_dist, s_valid, s_orig, surv,
+                                 st_end, st_dist, st_seed, R, M)
+    return surv.bool()

@@ -1,0 +1,556 @@
+"""Single-end alignment pipeline (port of the minimizer path of
+ma_tpu/pipeline/aligner.py).
+
+    minimizer seeding -> seed lumping / min length -> SoC -> harmonization
+    -> set packing                                        (device, torch)
+    -> DP planning (C++) -> fused DP + traceback (device, kernel C)
+    -> CIGAR assembly, mapping quality, SAM (C++)
+
+The device stage runs on the Aligner's `device` (kernels A/B/C on a CUDA
+device, their plain versions on the CPU). The finish always takes the native
+C++ path of ma_tpu.pipeline.finish_native, shared with ma_tpu. Options the
+port does not cover yet raise NotImplementedError naming the option.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import IO, Iterable, List, Sequence
+
+import numpy as np
+import torch
+
+from ma_tpu.config.parameters import ParameterSet, ParameterSetManager
+from ma_tpu.containers.alignment import Alignment
+from ma_tpu.containers.nucseq import NucSeq, revcomp_codes
+from ma_tpu.containers.pack import Pack
+from ma_tpu.io.sam import SamWriter
+from ma_tpu.pipeline import finish_native
+from ma_tpu.pipeline.quality import mapping_quality
+from ma_tpu.utils.profile import AnalyzeRuntimes, stage_timer
+from ma_tpu_torch.index.minimizer import MinimizerIndex, minimizer_seeding
+from ma_tpu_torch.ops.dp import _dp_desc_runs_fused
+from ma_tpu_torch.ops.filters import min_length, seed_lump
+from ma_tpu_torch.ops.harmonize import HarmBatch, harmonization
+from ma_tpu_torch.ops.soc import SoCBatch, soc_collect
+from ma_tpu_torch.pipeline.nw import DPProblem, NWAligner, NWConfig
+
+
+def _next_pow2(n: int, lo: int = 32) -> int:
+    v = lo
+    while v < n:
+        v *= 2
+    return v
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceStageConfig:
+    """Shape-determining parameters of the device stage. Capacities scale
+    with the padded read length L of the batch bucket."""
+
+    seeding_technique: str
+    mm_k: int
+    mm_w: int
+    max_segs: int
+    max_seeds: int
+    max_socs_collect: int
+    max_socs_harm: int
+    seeds_per_soc: int
+    min_seed_len: int
+    min_ambiguity: int
+    max_ambiguity: int
+    skip_ambiguous: bool
+    rectangular: bool
+    fixed_soc_width: int
+    match: int
+    extend: int
+    gap: int
+    min_socs: int
+    do_heuristics: bool
+    switch_qlen: int
+    score_tolerance: float
+    harm_score_min: int
+    harm_score_min_rel: float
+    score_diff_tolerance: float
+    max_lookahead: int
+    max_delta_dist: float
+    min_delta_dist: int
+    min_genome_size: int = 10_000_000
+    n_cand: int = 8
+    max_out_sets: int = 8
+
+    @classmethod
+    def from_params(cls, pset: ParameterSet, padded_len: int,
+                    cap_boost: int = 1) -> "DeviceStageConfig":
+        """`cap_boost` multiplies the per-read capacities (seed slots, SoC
+        window width, segment slots) for the overflow-rescue pass."""
+        g = pset.get
+        L = padded_len
+        cb = max(int(cap_boost), 1)
+        max_socs = int(g("Maximal Number of SoCs"))
+        return cls(
+            seeding_technique=str(g("Seeding Technique")),
+            mm_k=int(g("Minimizers - k")),
+            mm_w=int(g("Minimizers - w")),
+            max_segs=_next_pow2(max(64, cb * (L // 4))),
+            max_seeds=min(_next_pow2(max(256, L) * cb), 8192 * cb),
+            max_socs_collect=_next_pow2(max(32, max_socs), lo=32),
+            seeds_per_soc=min(_next_pow2(max(64, L // 8) * cb, lo=64), 2048 * cb),
+            min_seed_len=int(g("Minimal Seed Length")),
+            min_ambiguity=int(g("Minimal Ambiguity")),
+            max_ambiguity=int(g("Maximal Ambiguity")),
+            skip_ambiguous=bool(g("Skip Ambiguous Seeds")),
+            rectangular=bool(g("Rectangular SoC")),
+            fixed_soc_width=int(g("Fixed SoC Width")),
+            match=int(g("Match Score")),
+            extend=int(g("Extend Penalty")),
+            gap=int(g("Gap penalty")),
+            min_socs=int(g("Minimal Number of SoCs")),
+            do_heuristics=not bool(g("Disable All Heuristics")),
+            switch_qlen=int(g("Harmonization Score Drop-off - Minimal Query Length")),
+            score_tolerance=float(g("SoC Score Drop-off")),
+            harm_score_min=int(g("Minimal Harmonization Score")),
+            harm_score_min_rel=float(g("Relative Minimal Harmonization Score")),
+            score_diff_tolerance=float(g("Harmonization Drop-off A - Score Difference")),
+            max_lookahead=int(g("Harmonization Drop-off B - Lookahead")),
+            max_delta_dist=float(g("Artifact Filter A - Maximal Delta Distance")),
+            min_delta_dist=int(g("Artifact Filter B - Minimal Delta Distance")),
+            min_genome_size=int(g("Minimum Genome Size for Heuristics")),
+            n_cand=4 if (L <= 256 or L >= 8192) else 8,
+            max_socs_harm=min(
+                max_socs,
+                8 if L <= 256 else (16 if (L <= 1024 or L >= 8192) else max_socs),
+            ),
+        )
+
+
+def _harm_pack_core(harm: HarmBatch, overflow: torch.Tensor, max_sets: int = 0):
+    """Compaction of a HarmBatch for the host.
+
+    data [2, B*G*M] int32: the valid seeds of valid sets in (read, set,
+    seed) order — row 0 q_start << 16 | length, row 1 ref_start — followed
+    by zeros. meta [B * G_out] int32, one word per set: bit 0 set_valid,
+    bit 1 the read's capacity-overflow flag, bits 2-9 soc_of, bits 10+ the
+    set's seed count. With max_sets > 0 only the first max_sets valid sets
+    of a read survive, and meta keeps G_out = max_sets words per read (valid
+    sets first, original order)."""
+    B, G, M = harm.q_start.shape
+    dev = harm.q_start.device
+    set_ok = harm.set_valid
+    if max_sets and max_sets < G:
+        rank = torch.cumsum(set_ok.to(torch.int32), 1) - 1
+        set_ok = set_ok & (rank < max_sets)
+    G_out = min(max_sets, G) if max_sets else G
+    seed_ok = harm.valid & set_ok[:, :, None]
+    ql = (harm.q_start << 16) | harm.length
+    sel = seed_ok.reshape(-1)
+    data = torch.zeros((2, B * G * M), dtype=torch.int32, device=dev)
+    picked = torch.stack([ql.reshape(-1)[sel], harm.ref_start.reshape(-1)[sel]])
+    data[:, : picked.shape[1]] = picked
+    n_seeds = seed_ok.sum(2, dtype=torch.int32)
+    mw = (
+        set_ok.to(torch.int32)
+        | (overflow.to(torch.int32)[:, None] << 1)
+        | (harm.soc_of.to(torch.int32) << 2)
+        | (n_seeds << 10)
+    )
+    if G_out < G:
+        order = torch.argsort((~set_ok).to(torch.int32), dim=1, stable=True)
+        mw = torch.gather(mw, 1, order)[:, :G_out]
+    return data, mw.reshape(B * G_out)
+
+
+def _batch_overflow(cfg: DeviceStageConfig, soc: SoCBatch) -> torch.Tensor:
+    """Per-read overflow: any upstream capacity overflow, or a selected SoC
+    window wider than seeds_per_soc (harmonization would truncate it)."""
+    K = min(cfg.max_socs_harm, soc.start.shape[1])
+    sel = torch.arange(K, device=soc.start.device)[None, :] < torch.clamp(soc.n_socs, max=K)[:, None]
+    wide = sel & ((soc.end[:, :K] - soc.start[:, :K]) > cfg.seeds_per_soc)
+    return soc.overflow | wide.any(1)
+
+
+def _soc_min_score(cfg: DeviceStageConfig, lens: torch.Tensor, genome_text_len: int):
+    """SoC give-up threshold fMinLen (stripOfConsideration.cpp:21-23):
+    max(rel * qlen, harm_score_min) for large genomes, 0 otherwise."""
+    if genome_text_len < cfg.min_genome_size:
+        return torch.zeros_like(lens)
+    rel = (lens.float() * cfg.harm_score_min_rel).to(torch.int32)
+    return torch.clamp(rel, min=cfg.harm_score_min)
+
+
+def device_stage_mm(cfg: DeviceStageConfig, mmi, contig_starts: torch.Tensor,
+                    ref_len_forward: int, seqs: torch.Tensor, lens: torch.Tensor):
+    """Minimizer device stage: sketch + CHD lookup, seed filters, SoC,
+    harmonization, set packing. Returns (harm, soc, data, meta)."""
+    seeds = minimizer_seeding(
+        mmi, seqs, lens, contig_starts, ref_len_forward, k=cfg.mm_k, w=cfg.mm_w,
+        max_occ=cfg.max_ambiguity, max_seeds=cfg.max_seeds, rectangular=cfg.rectangular,
+    )
+    seeds = min_length(seed_lump(seeds), cfg.min_seed_len)
+    soc = soc_collect(
+        seeds, lens, contig_starts, match=cfg.match, extend=cfg.extend, gap=cfg.gap,
+        fixed_width=cfg.fixed_soc_width, rectangular=cfg.rectangular,
+        min_score=_soc_min_score(cfg, lens, 2 * ref_len_forward),
+        max_socs=cfg.max_socs_collect,
+    )
+    harm = harmonization(
+        soc, lens, text_len=2 * ref_len_forward, max_socs=cfg.max_socs_harm,
+        min_socs=cfg.min_socs, seeds_per_soc=cfg.seeds_per_soc,
+        do_heuristics=cfg.do_heuristics, switch_qlen=cfg.switch_qlen,
+        score_tolerance=cfg.score_tolerance, harm_score_min=cfg.harm_score_min,
+        harm_score_min_rel=cfg.harm_score_min_rel,
+        score_diff_tolerance=cfg.score_diff_tolerance, max_lookahead=cfg.max_lookahead,
+        max_delta_dist=cfg.max_delta_dist, min_delta_dist=cfg.min_delta_dist,
+        n_cand=cfg.n_cand,
+    )
+    data, meta = _harm_pack_core(harm, _batch_overflow(cfg, soc), cfg.max_out_sets)
+    return harm, soc, data, meta
+
+
+class Aligner:
+    """Single-end minimizer aligner over a Pack, on an explicit device."""
+
+    MAX_P_FUSED = 4096  # DP problems per fused-kernel launch
+
+    def __init__(self, pack: Pack, params: ParameterSetManager | ParameterSet | None = None,
+                 *, device):
+        if params is None:
+            params = ParameterSetManager()
+        self.pset: ParameterSet = (
+            params.selected if isinstance(params, ParameterSetManager) else params
+        )
+        self.device = torch.device(device)
+        self.pack = pack
+        self.contig_starts = torch.as_tensor(
+            np.asarray(pack.starts, np.int32), device=self.device
+        )
+        self.nw_cfg = NWConfig(self.pset)
+        self._mmi_dev = None
+        self.profiler: AnalyzeRuntimes | None = None
+        codes = np.asarray(pack.codes, np.uint8)
+        # folded genome codes (forward || reverse complement): the DP windows
+        # are cut from text_dev on the device, the native finish reads text_host
+        self.text_host = np.concatenate([codes, revcomp_codes(codes)])
+        self.text_dev = torch.as_tensor(self.text_host, device=self.device)
+        # reads whose fixed-shape capacities truncated work this run
+        self.n_overflow_reads = 0
+        # overflow rescue: flagged reads re-align through a cap_boost'ed stage
+        self.cap_boost = 1
+        self.n_rescued_reads = 0
+        self._in_rescue = False
+
+    def _check_supported(self) -> None:
+        """The ported slice: single-end minimizer seeding, no SDUST, no
+        small inversions, no NGMLR tags."""
+        g = self.pset.get
+        if str(g("Seeding Technique")) != "minimizers":
+            raise NotImplementedError(f"Seeding Technique = {g('Seeding Technique')}")
+        if int(g("Minimizers - SDUST Threshold")) > 0:
+            raise NotImplementedError("Minimizers - SDUST Threshold")
+        if bool(g("Detect Small Inversions")):
+            raise NotImplementedError("Detect Small Inversions")
+        if bool(g("Emulate NGMLR's tag output")):
+            raise NotImplementedError("Emulate NGMLR's tag output")
+        if bool(g("Use Paired Reads")):
+            raise NotImplementedError("Use Paired Reads")
+
+    def mmi_dev(self, cfg: DeviceStageConfig):
+        """The device minimizer index, built on first use."""
+        if self._mmi_dev is None:
+            mmi = MinimizerIndex.build(self.pack, k=cfg.mm_k, w=cfg.mm_w)
+            self._mmi_dev = mmi.to_device(self.device)
+        return self._mmi_dev
+
+    # ----------------------------------------------------------------- device
+    def run_device_stage(self, seqs: np.ndarray, lens: np.ndarray):
+        """The device stage on a [B, L] batch of codes. Returns (harm, soc,
+        packed data, packed meta, seqs on the device)."""
+        self._check_supported()
+        cfg = DeviceStageConfig.from_params(self.pset, seqs.shape[1], cap_boost=self.cap_boost)
+        seqs_d = torch.as_tensor(seqs, device=self.device)
+        lens_d = torch.as_tensor(np.asarray(lens, np.int32), device=self.device)
+        harm, soc, data, meta = device_stage_mm(
+            cfg, self.mmi_dev(cfg), self.contig_starts,
+            self.pack.unpacked_size_forward_strand, seqs_d, lens_d,
+        )
+        return harm, soc, data, meta, seqs_d
+
+    # ------------------------------------------------------------------- host
+    @staticmethod
+    def _pad_batch(reads: Sequence[NucSeq], B: int):
+        L = _next_pow2(max(len(r) for r in reads))
+        seqs = np.full((B, L), 4, np.uint8)
+        lens = np.zeros(B, np.int32)
+        for i, r in enumerate(reads):
+            seqs[i, : len(r)] = r.codes
+            lens[i] = len(r)
+        return seqs, lens
+
+    def align_batch(self, reads: Sequence[NucSeq], pad_to: int = 0) -> List[List[Alignment]]:
+        """Align a batch of reads (padded to one length bucket); `pad_to` pads
+        the batch with empty rows (the rescue pass uses a fixed small batch)."""
+        if not reads:
+            return []
+        B = len(reads)
+        if pad_to:
+            while pad_to < B:
+                pad_to *= 2
+            B = pad_to
+        seqs, lens = self._pad_batch(reads, B)
+        with stage_timer(self.profiler, "device seed+soc+harmonize"):
+            _harm, _soc, data, meta, seqs_d = self.run_device_stage(seqs, lens)
+        return self.collect_batch(self.plan_batch(reads, data, meta, seqs_d, seqs))
+
+    def plan_batch(self, reads: Sequence[NucSeq], data_d, meta_d, seqs_dev, seqs_np):
+        """Download the packed sets, plan the DP problems (C++) and launch
+        the fused DP. Returns the pending state for collect_batch."""
+        nw = NWAligner(self.nw_cfg, self.text_dev, seqs_dev)
+        with stage_timer(self.profiler, "device stage wait"):
+            # meta word: bit0 valid, bit1 overflow, bits2-9 soc_of, bits10+ n_seeds
+            mw = meta_d.cpu().numpy().reshape(seqs_np.shape[0], -1)
+            hsv = (mw & 1).astype(bool)
+            hsoc = ((mw >> 2) & 255).astype(np.int32)
+            hn = (mw >> 10).astype(np.int32)
+            nw.overflow_flags = ((mw[:, 0] >> 1) & 1).astype(bool)
+            if not self._in_rescue:
+                self.n_overflow_reads += int(nw.overflow_flags.sum())
+            hqlr = data_d[:, : int(hn.sum())].cpu().numpy()
+        # data row0 = q_start << 16 | length, row1 = ref_start
+        hq, hl, hr = hqlr[0] >> 16, hqlr[0] & 0xFFFF, hqlr[1]
+        return self._plan_native(reads, nw, seqs_np, hq, hl, hr, hn, hsoc)
+
+    def _plan_native(self, reads, nw, seqs_np, hq, hl, hr, hn, hsoc):
+        """C++ planning + bucketed fused-DP launches."""
+        B, G = hn.shape
+        flat_n = hn.reshape(-1)
+        sel = np.flatnonzero(flat_n)  # candidate sets (invalid sets have n = 0)
+        with stage_timer(self.profiler, "host DP planning"):
+            set_off = np.zeros(len(sel) + 1, np.int64)
+            np.cumsum(flat_n[sel], out=set_off[1:])
+            set_read = (sel // G).astype(np.int32)
+            set_soc = hsoc.reshape(-1)[sel].astype(np.int32)
+            planned = finish_native.plan(
+                self.pack, nw.cfg, reads, seqs_np, np.ascontiguousarray(hq, np.int32),
+                np.ascontiguousarray(hl, np.int32), np.ascontiguousarray(hr, np.int32),
+                set_off, set_read, set_soc,
+            )
+        if planned is None:
+            raise RuntimeError("finish_native.plan: planner output overflow")
+        desc, toks, sbr = planned
+        n_prob = len(desc)
+        if n_prob and (int(desc[:, 2].max()) > 256 or int(desc[:, 5].max()) > 768):
+            raise NotImplementedError(
+                "DP problems beyond the fused buckets (query > 256 or reference > 768)"
+            )
+        launched = []
+        with stage_timer(self.profiler, "dp dispatch"):
+            if n_prob:
+                m = np.maximum(desc[:, 2], 1)
+                n = np.maximum(desc[:, 5], 1)
+                isg = desc[:, 8]
+                Nb = np.where(n <= 128, 128, 768)
+                Mb = np.select([m <= 32, m <= 64], [32, 64], 256)
+                Mb = np.where((Nb == 768) & (Mb < 64), 64, Mb)
+                key = Mb.astype(np.int64) * 10000 + Nb * 4 + isg * 2
+                order = np.lexsort((m, key))
+                skey = key[order]
+                bounds = np.flatnonzero(np.concatenate(([True], skey[1:] != skey[:-1])))
+                bounds = np.concatenate((bounds, [n_prob]))
+                for bi in range(len(bounds) - 1):
+                    rows_all = order[bounds[bi] : bounds[bi + 1]]
+                    Mv, Nv = int(Mb[rows_all[0]]), int(Nb[rows_all[0]])
+                    is_glob = bool(isg[rows_all[0]])
+                    for s in range(0, len(rows_all), self.MAX_P_FUSED):
+                        rows = rows_all[s : s + self.MAX_P_FUSED]
+                        d8 = torch.as_tensor(
+                            np.ascontiguousarray(desc[rows, :8].T), device=self.device
+                        )
+                        comb, runs_t = _dp_desc_runs_fused(
+                            self.text_dev, nw.seqs_dev, d8, M=Mv, N=Nv,
+                            params=nw.cfg.params,
+                            zdrop=-1 if is_glob else nw.cfg.zdrop, is_global=is_glob,
+                        )
+                        launched.append((rows, is_glob, comb, runs_t))
+        return (reads, nw, desc, toks, sbr, set_read, set_soc, seqs_np, launched)
+
+    def _assemble_native(self, state):
+        """Wait for the DP runs, redo run overflows, run the C++ assembler.
+        Returns (reads, nw, set_read, set_soc, out_op, out_len, out_off,
+        out_meta)."""
+        (reads, nw, desc, toks, sbr, set_read, set_soc, seqs_np, launched) = state
+        n_prob = len(desc)
+        prob_nr = np.zeros(n_prob, np.int64)
+        prob_meta = np.full((max(n_prob, 1), 2), -1, np.int64)
+        fwd_ops = []
+        with stage_timer(self.profiler, "device banded DP + traceback"):
+            for rows, is_glob, comb_d, runs_d in launched:
+                comb = comb_d.cpu().numpy()
+                n_runs = comb[0]
+                over = comb[5]
+                smax = max(1, int(n_runs.max(initial=0)))
+                runs_t = runs_d[:smax].cpu().numpy()
+                prob_nr[rows] = n_runs
+                prob_meta[rows, 0] = comb[2]
+                prob_meta[rows, 1] = comb[3]
+                # forward-order runs [K, smax]
+                jj = np.arange(smax)[None, :]
+                idx = np.clip(n_runs[:, None] - 1 - jj, 0, smax - 1)
+                fwd = np.take_along_axis(runs_t.T, idx, axis=1).astype(np.int64)
+                fwd = np.where(jj < n_runs[:, None], fwd, 0)
+                for k in np.flatnonzero(over):
+                    cig = nw.redo_one(DPProblem.from_desc(desc[rows[k]], is_glob))
+                    arr = np.asarray([o | (ln << 2) for (o, ln) in cig], np.int64)
+                    if len(arr) > fwd.shape[1]:
+                        wider = np.zeros((len(rows), len(arr)), np.int64)
+                        wider[:, : fwd.shape[1]] = fwd
+                        fwd = wider
+                    fwd[k] = 0
+                    fwd[k, : len(arr)] = arr
+                    prob_nr[rows[k]] = len(arr)
+                fwd_ops.append(fwd)
+            # global CSR over problems in row order
+            prob_off = np.zeros(n_prob + 1, np.int64)
+            np.cumsum(prob_nr, out=prob_off[1:])
+            prob_runs = np.zeros((int(prob_off[-1]), 2), np.int32)
+            for (rows, _g, _c, _r), fwd in zip(launched, fwd_ops):
+                nr = prob_nr[rows]
+                mask = np.arange(fwd.shape[1])[None, :] < nr[:, None]
+                vals = fwd[mask]
+                dest = (prob_off[rows][:, None] + np.arange(fwd.shape[1])[None, :])[mask]
+                prob_runs[dest, 0] = vals & 3
+                prob_runs[dest, 1] = vals >> 2
+        with stage_timer(self.profiler, "host CIGAR assembly"):
+            out_op, out_len, out_off, out_meta = finish_native.assemble(
+                toks, sbr, set_read, prob_runs, prob_off, prob_meta,
+                self.text_host, seqs_np, nw.cfg.params, nw.cfg.sv_penalty,
+            )
+        return (reads, nw, set_read, set_soc, out_op, out_len, out_off, out_meta)
+
+    def _alignments(self, assembled) -> List[List[Alignment]]:
+        reads, nw, set_read, set_soc, out_op, out_len, out_off, out_meta = assembled
+        with stage_timer(self.profiler, "host CIGAR assembly"):
+            per_read = finish_native.build_alignments(
+                out_op, out_len, out_off, out_meta, set_read, set_soc, reads,
+                nw.cfg.params, nw.cfg.sv_penalty,
+            )
+        return self._quality_phase(reads, per_read)
+
+    def _collect_native_sam(self, state, omit_sec: bool, omit_sup: bool):
+        """Collect straight to SAM text: ("sam", bytes) or, when the C++
+        writer declines the batch (CG-tag cigars), ("objects", alignments)."""
+        assembled = self._assemble_native(state)
+        reads, _nw, set_read, set_soc, out_op, out_len, out_off, out_meta = assembled
+        seqs_np = state[7]
+        g = self.pset.get
+        with stage_timer(self.profiler, "host SAM write"):
+            res = finish_native.emit_sam(
+                out_op, out_len, out_off, out_meta, set_read, set_soc, reads, seqs_np,
+                self.pack, match=int(g("Match Score")),
+                max_supplementary=int(g("Number Supplementary Alignments")),
+                max_overlap=float(g("Maximal Supplementary Overlap")),
+                report_n=int(g("Maximal Number of Reported Alignments")),
+                min_score=int(g("Minimal Alignment Score")),
+                soft_clip=bool(g("Soft clip")), use_m=bool(g("Use M in CIGAR")),
+                omit_sec=omit_sec, omit_sup=omit_sup,
+            )
+        if res is not None:
+            return ("sam", res[0])
+        return ("objects", self._alignments(assembled))
+
+    def _maybe_rescue(self, reads, results, nw):
+        """Reads whose fixed-shape capacities truncated seeds or SoC windows
+        re-align through a cap_boost'ed device stage; their results replace
+        the truncated ones."""
+        flags = nw.overflow_flags
+        if flags is None or self._in_rescue or not flags.any():
+            return results
+        idx = [int(i) for i in np.flatnonzero(flags) if i < len(reads) and len(reads[i])]
+        if not idx:
+            return results
+        self._in_rescue = True
+        old = self.cap_boost
+        self.cap_boost = max(4 * old, 4)
+        try:
+            res2 = self.align_batch([reads[i] for i in idx], pad_to=32)
+            for k, i in enumerate(idx):
+                results[i] = res2[k]
+            self.n_rescued_reads += len(idx)
+        finally:
+            self.cap_boost = old
+            self._in_rescue = False
+        return results
+
+    def collect_batch(self, state) -> List[List[Alignment]]:
+        """Wait for the DP, assemble, mapping quality, overflow rescue."""
+        results = self._alignments(self._assemble_native(state))
+        return self._maybe_rescue(state[0], results, state[1])
+
+    def _quality_phase(self, reads, per_read) -> List[List[Alignment]]:
+        g = self.pset.get
+        with stage_timer(self.profiler, "host mapping quality"):
+            return [
+                mapping_quality(
+                    alns, len(reads[b]), match=int(g("Match Score")),
+                    max_supplementary=int(g("Number Supplementary Alignments")),
+                    max_overlap_supplementary=float(g("Maximal Supplementary Overlap")),
+                    report_n=int(g("Maximal Number of Reported Alignments")),
+                    min_score=int(g("Minimal Alignment Score")),
+                )
+                for b, alns in enumerate(per_read)
+            ]
+
+    # --------------------------------------------------------------- frontend
+    def align_to_sam(self, reads: Iterable[NucSeq], out: IO[str], batch_size: int = 256,
+                     cmd: str = "ma_tpu_torch") -> int:
+        """Stream reads -> SAM records; returns the number of reads.
+
+        Reads are grouped into batches by padded length (a bucket flushes at
+        batch_size reads, fewer for long reads) and written in flush order."""
+        self._check_supported()
+        g = self.pset.get
+        writer = SamWriter(
+            out, self.pack, cmd=cmd, soft_clip=bool(g("Soft clip")),
+            use_m_cigar=bool(g("Use M in CIGAR")), ngmlr_tags=False,
+            cg_tag=bool(g("Output long cigars in CG tag")),
+        )
+        omit_sec = bool(g("Omit Secondary Alignments"))
+        omit_sup = bool(g("Omit Supplementary Alignments"))
+        n = 0
+
+        def run(bucket: List[NucSeq]):
+            nonlocal n
+            with stage_timer(self.profiler, "host batch prep"):
+                seqs, lens = self._pad_batch(bucket, len(bucket))
+            with stage_timer(self.profiler, "device seed+soc+harmonize"):
+                _harm, _soc, data, meta, seqs_d = self.run_device_stage(seqs, lens)
+            state = self.plan_batch(bucket, data, meta, seqs_d, seqs)
+            if state[1].overflow_flags.any():  # the rescue needs Alignment objects
+                results = self.collect_batch(state)
+            else:
+                kind, res = self._collect_native_sam(state, omit_sec, omit_sup)
+                if kind == "sam":
+                    with stage_timer(self.profiler, "host SAM write"):
+                        writer.write_text(res.decode("ascii"))
+                    n += len(bucket)
+                    results = None
+                else:
+                    results = res
+            if results is not None:
+                with stage_timer(self.profiler, "host SAM write"):
+                    for read, alns in zip(bucket, results):
+                        if omit_sec:
+                            alns = [a for a in alns if not a.secondary]
+                        if omit_sup:
+                            alns = [a for a in alns if not a.supplementary]
+                        writer.write(alns, read)
+                        n += 1
+
+        buckets: dict = {}
+        for read in reads:
+            key = _next_pow2(max(len(read), 1))
+            buckets.setdefault(key, []).append(read)
+            eff = batch_size if key <= 512 else max(32, batch_size * 512 // key)
+            if len(buckets[key]) >= eff:
+                run(buckets.pop(key))
+        for bucket in buckets.values():
+            run(bucket)
+        return n

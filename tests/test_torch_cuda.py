@@ -1,0 +1,97 @@
+"""The CUDA kernels of ma_tpu_torch against their plain PyTorch versions on
+the same CUDA tensors (exact equality). These need an NVIDIA GPU and nvcc
+and skip without one; on a machine with a card run
+
+    python -m pytest tests/test_torch_cuda.py -o addopts= --noconftest -q
+
+(--noconftest: tests/conftest.py configures JAX, which that machine lacks.)
+"""
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def test_soc_sweep_kernel(cuda):
+    from ma_tpu_torch.ops.soc_cuda import soc_sweep, soc_sweep_plain
+
+    rng = np.random.default_rng(0)
+    S, B, K = 64, 300, 8
+    # prefix sums along each read's candidates, windows ending ahead of them
+    lens = rng.integers(0, 30, (B, S))
+    amb = rng.integers(0, 3, (B, S))
+    plen, pamb = np.cumsum(lens, 1), np.cumsum(amb, 1)
+    we = np.minimum(np.arange(S)[None, :] + rng.integers(1, 6, (B, S)), S)
+    take = lambda a, i: np.take_along_axis(a, np.clip(i, 0, S - 1), 1) * (i >= 0)
+    pex, aex = plen - lens, pamb - amb
+    pend, aend = take(plen, we - 1), take(pamb, we - 1)
+    cand = np.stack([pend - pex, aend - aex, we, pex, aex, pend, aend], -1)
+    cand = torch.as_tensor(cand.transpose(1, 0, 2).copy(), dtype=torch.int32, device=cuda)
+    n = torch.as_tensor(rng.integers(0, S + 1, B), dtype=torch.int32, device=cuda)
+    ms = torch.as_tensor(rng.integers(0, 20, B), dtype=torch.int32, device=cuda)
+    got = soc_sweep(cand, n, ms, K)
+    want = soc_sweep_plain(cand, n, ms, K)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert bool(got[2].any())  # K = 8 slots overflow
+
+
+@pytest.mark.parametrize("M", [64, 2048])
+def test_linesweep_kernel(cuda, M):
+    from ma_tpu_torch.ops.harmonize_cuda import linesweep_sorted, linesweep_sorted_plain
+
+    rng = np.random.default_rng(M)
+    R = 257
+    starts = rng.integers(0, 300, (R, M))
+    ends = starts + rng.integers(10, 50, (R, M))
+    order = np.lexsort((-ends, starts), axis=-1)
+    dev = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=cuda)
+    ops = (dev(np.take_along_axis(ends, order, 1), torch.int32),
+           dev(rng.integers(0, 8, (R, M)) * 0.5, torch.float32),
+           dev(rng.random((R, M)) < 0.8, torch.int32), dev(order, torch.int32))
+    got = linesweep_sorted(*ops)
+    torch.cuda.synchronize()
+    assert torch.equal(got, linesweep_sorted_plain(*ops))
+
+
+@pytest.mark.parametrize("is_global", [True, False])
+def test_dp_fused_kernel(cuda, is_global):
+    from ma_tpu_torch.ops.dp import DPParams
+    from ma_tpu_torch.ops.dp_fused import banded_align_runs, banded_align_runs_plain
+
+    rng = np.random.default_rng(int(is_global))
+    P, M, N = 96, 64, 128
+    q = rng.integers(0, 4, (P, M))
+    t = np.concatenate([q, rng.integers(0, 4, (P, N - M))], 1)
+    t[rng.random(t.shape) < 0.05] = rng.integers(0, 4)
+    t[:, 20:23] = 4
+    dev = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int32, device=cuda)
+    qlen = rng.integers(1, M + 1, P)
+    tlen = rng.integers(1, N + 1, P)
+    band = np.full(P, 40)
+    tb = (np.arange(P) % 3 == 0) & (not is_global)
+    kw = dict(M=M, N=N, params=DPParams(), zdrop=-1 if is_global else 30,
+              is_global=is_global, tb_last=dev(tb), R=8)
+    args = (dev(q), dev(t), dev(qlen), dev(tlen), dev(band))
+    got = banded_align_runs(*args, **kw)
+    torch.cuda.synchronize()
+    want = banded_align_runs_plain(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_kernels_count_launches(cuda):
+    from ma_tpu_torch import kernels
+    from ma_tpu_torch.ops.harmonize_cuda import linesweep_sorted
+
+    before = kernels.LINESWEEP.launches
+    z = torch.zeros((4, 64), dtype=torch.int32, device=cuda)
+    linesweep_sorted(z, z.float(), z, z)
+    assert kernels.LINESWEEP.launches == before + 1

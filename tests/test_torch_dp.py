@@ -1,0 +1,165 @@
+"""ma_tpu_torch fused DP (kernel C's plain version: dp_rows forward +
+traceback + run packing) against ma_tpu's fused Pallas kernel in interpret
+mode, and the descriptor-mode entry against ma_tpu's. Exact equality, with
+one exception named below: where lastrow_max is NEG_INF (no undropped cell
+in the last row), the Pallas kernel leaves the first lane of its first
+tile in lastrow_arg and the port 0."""
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from ma_tpu.ops import dp as JD  # noqa: E402
+from ma_tpu.ops.dp_fused import banded_align_runs as pallas_runs  # noqa: E402
+from ma_tpu_torch.ops import dp as TD  # noqa: E402
+from ma_tpu_torch.ops.dp_fused import banded_align_runs, banded_align_runs_plain  # noqa: E402
+
+# the suite runs several test processes side by side on the CPU; one
+# intra-op thread each keeps torch's many small ops from contending
+torch.set_num_threads(1)
+
+NEG = -(2**30)
+
+
+def _problems(seed, P, M, N, is_global):
+    """Targets are mutated copies of the queries (substitutions, indels,
+    Ns) with random flanks; every sixth query uses two letters only (score
+    ties); every fifth extension target turns random after a few bases
+    (z-drop); every fourth extension problem traces back from its last
+    row."""
+    rng = np.random.default_rng(seed)
+    q = np.full((P, M), 4, np.int32)
+    t = np.full((P, N), 4, np.int32)
+    qlen = rng.integers(1, M + 1, P).astype(np.int32)
+    tlen = np.zeros(P, np.int32)
+    for p in range(P):
+        qs = rng.integers(0, 2 if p % 6 == 3 else 4, qlen[p])
+        qs[rng.random(qlen[p]) < 0.02] = 4
+        q[p, : qlen[p]] = qs
+        r = rng.random(qlen[p])
+        keep = r >= 0.04
+        ts = np.where(r < 0.12, rng.integers(0, 4, qlen[p]), qs)[keep]
+        ins = np.flatnonzero((r > 0.96)[keep]) + 1
+        ts = np.insert(ts, ins, rng.integers(0, 4, len(ins)))
+        if not is_global and p % 5 == 0:
+            ts[min(len(ts), 6):] = rng.integers(0, 4, max(0, len(ts) - 6))
+        ts = np.concatenate([ts, rng.integers(0, 4, rng.integers(0, N // 2))])
+        n = max(1, min(N, len(ts)))
+        t[p, :n] = ts[:n]
+        tlen[p] = n
+    band = (np.maximum(20, np.abs(tlen - qlen) + 10) if is_global
+            else np.full(P, 64)).astype(np.int32)
+    tb_last = np.zeros(P, np.int32) if is_global else (np.arange(P) % 4 == 1).astype(np.int32)
+    return q, t, qlen, tlen, band, tb_last
+
+
+def _compare(M, N, is_global, zdrop, R, seed, P=40):
+    return _compare_on(_problems(seed, P, M, N, is_global), M, N, is_global, zdrop, R)
+
+
+def _compare_on(problems, M, N, is_global, zdrop, R):
+    q, t, qlen, tlen, band, tb_last = problems
+    params = JD.DPParams()
+    jr, jm = pallas_runs(jnp.asarray(q), jnp.asarray(t), jnp.asarray(qlen), jnp.asarray(tlen),
+                         jnp.asarray(band), M=M, N=N, params=params, zdrop=zdrop,
+                         is_global=is_global, interpret=True, tb_last=jnp.asarray(tb_last), R=R)
+    tr, tm = banded_align_runs(
+        torch.as_tensor(q), torch.as_tensor(t), torch.as_tensor(qlen), torch.as_tensor(tlen),
+        torch.as_tensor(band), M=M, N=N, params=TD.DPParams(*params), zdrop=zdrop,
+        is_global=is_global, tb_last=torch.as_tensor(tb_last), R=R)
+    jr, jm, tr, tm = np.asarray(jr), np.asarray(jm), tr.numpy(), tm.numpy()
+    assert np.array_equal(jm[:7], tm[:7])
+    lr_ok = jm[6] > NEG
+    assert np.array_equal(jm[7][lr_ok], tm[7][lr_ok])
+    assert (tm[7][~lr_ok] == (0 if not (is_global and zdrop < 0) else -1)).all()
+    assert np.array_equal(jr, tr)
+    return jm
+
+
+@pytest.mark.parametrize("M,N", [(32, 128), (64, 128)])
+def test_global(M, N):
+    _compare(M, N, True, -1, TD.run_capacity(M), seed=M)
+
+
+@pytest.mark.parametrize("M,N", [(32, 128), (64, 128)])
+def test_extension_zdrop_tb_last(M, N):
+    meta = _compare(M, N, False, 10, TD.run_capacity(M), seed=M + 1)
+    assert meta[4].any()  # some problems z-dropped
+
+
+# extension problems whose best cell ties with a cell of a later row on the
+# same anti-diagonal (the earlier row keeps the max cell)
+TIES = [
+    ([0, 1, 0, 1, 0, 0, 1, 0, 1, 1, 1],
+     [1, 0, 1, 0, 1, 1, 1, 0, 1, 0, 1, 0, 1, 1, 0, 1, 1, 0, 0, 0, 0, 1]),
+    ([0, 1, 1, 0, 0, 0, 1, 0, 0, 1, 0, 0],
+     [0, 1, 0, 0, 1, 0, 0, 0, 1, 1, 1, 0, 1, 0, 1, 0, 0, 0, 1, 0, 0]),
+    ([1, 1, 0, 1, 0, 1, 1, 0, 0], [1, 0, 1, 0, 1, 0, 0, 0, 1, 0, 1, 1, 1, 1]),
+]
+
+
+def test_max_cell_anti_diagonal_ties():
+    P, M, N = len(TIES), 32, 128
+    q = np.full((P, M), 4, np.int32)
+    t = np.full((P, N), 4, np.int32)
+    for p, (qs, ts) in enumerate(TIES):
+        q[p, : len(qs)], t[p, : len(ts)] = qs, ts
+    lens = [np.asarray([len(x[k]) for x in TIES], np.int32) for k in (0, 1)]
+    problems = (q, t, *lens, np.full(P, 64, np.int32), np.zeros(P, np.int32))
+    meta = _compare_on(problems, M, N, False, -1, 32)
+    assert meta[2].tolist() == [3, 6, 4] and meta[3].tolist() == [4, 8, 5]
+
+
+@pytest.mark.parametrize("is_global", [True, False])
+def test_run_overflow(is_global):
+    """R = 4 runs: most problems overflow; stored runs, counts and the
+    overflow flag still agree (later same-op emits merge into run R-1)."""
+    meta = _compare(64, 128, is_global, -1 if is_global else 200, 4, seed=9)
+    assert meta[5].sum() >= 5
+
+
+def test_plain_is_the_cpu_route():
+    """The wrapper runs the plain version for CPU tensors."""
+    q, t, qlen, tlen, band, tb_last = (torch.as_tensor(a) for a in _problems(2, 8, 32, 128, False))
+    kw = dict(M=32, N=128, zdrop=200, is_global=False, tb_last=tb_last, R=32)
+    a = banded_align_runs(q, t, qlen, tlen, band, **kw)
+    b = banded_align_runs_plain(q, t, qlen, tlen, band, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_desc_mode_matches():
+    """Descriptor operands and the descriptor-mode fused DP entry: runs and
+    meta as ma_tpu returns them (ma_tpu ships comb as int16 with the meta
+    clipped to its range; the port keeps int32)."""
+    rng = np.random.default_rng(11)
+    B, L, T = 6, 256, 5000
+    seqs = rng.integers(0, 5, (B, L)).astype(np.uint8)
+    text = rng.integers(0, 4, T).astype(np.uint8)
+    P, M, N = 24, 64, 128
+    q_len = rng.integers(1, M + 1, P)
+    t_len = rng.integers(1, N + 1, P)
+    desc = np.stack([
+        rng.integers(0, B, P), rng.integers(0, L - M, P), q_len, rng.integers(0, 2, P),
+        rng.integers(0, T - N, P), t_len, rng.integers(0, 2, P), np.full(P, 40),
+    ]).astype(np.int32)
+    jq, jt, *_ = JD._desc_operands(jnp.asarray(text), jnp.asarray(seqs), jnp.asarray(desc), M, N)
+    tq, tt, *_ = TD._desc_operands(torch.as_tensor(text), torch.as_tensor(seqs),
+                                   torch.as_tensor(desc), M, N)
+    assert np.array_equal(np.asarray(jq), tq.numpy())
+    assert np.array_equal(np.asarray(jt), tt.numpy())
+    for is_global, zdrop in ((True, -1), (False, 200)):
+        jc, jr = JD._dp_desc_runs_fused(jnp.asarray(text), jnp.asarray(seqs), jnp.asarray(desc),
+                                        M=M, N=N, params=JD.DPParams(), zdrop=zdrop,
+                                        is_global=is_global, interpret=True)
+        tc, tr = TD._dp_desc_runs_fused(torch.as_tensor(text), torch.as_tensor(seqs),
+                                        torch.as_tensor(desc), M=M, N=N,
+                                        params=TD.DPParams(), zdrop=zdrop, is_global=is_global)
+        jc, tc = np.asarray(jc).astype(np.int64), tc.numpy()
+        assert tc.dtype == np.int32 and tc.shape == jc.shape
+        assert np.array_equal(jc[:7], np.clip(tc[:7], -32768, 32767))
+        assert np.array_equal(jc[8:], tc[8:])
+        assert np.array_equal(np.asarray(jr), tr.numpy())
+        cig = TD.packed_runs_to_cigars(tr.numpy(), tc[0])
+        assert cig == JD.packed_runs_to_cigars(np.asarray(jr), np.asarray(jc[0]))
