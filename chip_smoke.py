@@ -9,19 +9,37 @@ Phases (any failure raises and exits non-zero before the last line):
   1. card: name and power limit, as nvidia-smi reports them;
   2. build: nvcc compiles ma_tpu_torch/csrc/*.cu for sm_90a into
      ma_tpu_torch/_build/;
-  3. kernels: each CUDA kernel of the main path against its plain PyTorch
-     version on the same CUDA inputs at main-path shapes (exact equality),
-     with both times (CUDA events);
-  4. slice: the bench.py workload at E. coli K-12 size (random 4,641,652 bp
-     genome, 16,384 x 150 bp reads at 1% substitutions, half reverse
-     complemented, batch 4096) through Aligner(device="cuda").align_to_sam:
-     reads/s (median of 3 passes after a warm-up), each kernel's launches
-     in those passes, and the share of reads placed at their simulated
-     position and strand (must be >= 99%);
-  5. cross-check: the first 512 reads through the same port on
-     device="cpu" must give byte-identical SAM.
+  3. kernels A, B, C: each against its plain PyTorch version on the same
+     CUDA inputs at main-path shapes (exact equality), with both times (CUDA
+     events);
+  4. wavefront kernels: kernel D against its plain version at an extension
+     bucket (P = 256, M = 1024, N = 4096, band 512, z-drop 200) and a global
+     inversion-like bucket (P = 128, M = N = 512, band 512), exact on every
+     output, with both times; the traceback kernel against its plain version
+     on D's output; the problems that overflowed kernel C's run buffer in
+     phase 3 redone through D + traceback on the card and on the CPU (the
+     cigars must agree);
+  5. short reads: the bench.py workload at E. coli K-12 size (random
+     4,641,652 bp genome, 16,384 x 150 bp reads at 1% substitutions, half
+     reverse complemented, batch 4096) through
+     Aligner(device="cuda").align_to_sam: reads/s (median of 3 passes after a
+     warm-up), the launches of kernels A, B, C in those passes, and the share
+     of reads placed at their simulated position and strand (must be
+     >= 99%); then the first 512 reads through the same port on
+     device="cpu" must give byte-identical SAM;
+  6. long reads: scripts/long_read_bench.py's workload (256 reads of 20 kb
+     over a random 10 Mbp genome, 1% substitutions, 2% insertions, 2%
+     deletions, odd reads reverse complemented, default_rng(4242)) with a
+     200 bp inverted stretch planted in the middle of every fourth read,
+     PacBio preset, minimizers, "Detect Small Inversions" on: reads/s and
+     Mbases/s (median of 3 passes after a warm-up), placement (primary
+     records within 200 bp of the simulated start, must be >= 98%),
+     inversion windows and records, host-clock stages, and each kernel's
+     launches in those passes (all five must launch); then the first 4 long
+     reads on device="cpu" must give byte-identical SAM.
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record (launches from the
+long-read passes, which run all five kernels); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 No JAX is imported.
 """
@@ -42,6 +60,11 @@ GENOME_BP = 4_641_652  # E. coli K-12 MG1655
 N_READS, READ_LEN, BATCH = 16_384, 150, 4096  # bench.py's workload
 CHECK_READS = 512  # reads cross-checked against the CPU port
 PASSES = 3
+# scripts/long_read_bench.py 256 20000 10, with a planted inversion
+LONG_READS, LONG_LEN, LONG_GENOME_BP, LONG_BATCH = 256, 20_000, 10_000_000, 8192
+INV_LEN, INV_EVERY = 200, 4
+LONG_PLACE_TOL = 200
+LONG_CHECK_READS = 4
 
 
 def card_line() -> str:
@@ -176,6 +199,11 @@ def dp_inputs(rng, P: int, M: int, N: int, is_global: bool, dev):
 
 
 def kernel_phase(aligner, reads, dev, records):
+    """Kernels A, B, C against their plain versions. Returns kernel C's
+    run-overflow problems as host arrays (q, t, qlen, tlen, band, is_global)
+    for the redo check of wavefront_phase."""
+    import torch
+
     from ma_tpu_torch.ops.dp import DPParams, run_capacity
     from ma_tpu_torch.ops.dp_fused import banded_align_runs, banded_align_runs_plain
     from ma_tpu_torch.ops.harmonize_cuda import linesweep_sorted, linesweep_sorted_plain
@@ -213,6 +241,15 @@ def kernel_phase(aligner, reads, dev, records):
     # ---- C: fused DP at every (M, N) bucket, P = 4096, both modes
     params = DPParams()
     total_err, ms_sum, pms_sum = 0, 0.0, 0.0
+    overflowed = []
+
+    def keep_overflows(meta, q, t, ql, tl, bd, is_global, cap=256):
+        rows = torch.nonzero(meta[5]).flatten()[:cap]
+        if len(rows):
+            overflowed.append(tuple(a[rows].cpu().numpy() for a in (q, t, ql, tl, bd))
+                              + (is_global,))
+        return len(rows)
+
     for M, N in ((32, 128), (64, 128), (256, 128), (64, 768), (256, 768)):
         for is_global in (True, False):
             q, t, ql, tl, bd, tb = dp_inputs(rng, 4096, M, N, is_global, dev)
@@ -224,6 +261,7 @@ def kernel_phase(aligner, reads, dev, records):
             ms = time_ms(lambda: banded_align_runs(q, t, ql, tl, bd, **kw), 5)
             pms = time_ms(lambda: banded_align_runs_plain(q, t, ql, tl, bd, **kw), 1)
             over = int(got[1][5].sum())
+            keep_overflows(got[1], q, t, ql, tl, bd, is_global)
             print(f"kernel dp_fused: P=4096 M={M} N={N} global={is_global} "
                   f"run_overflows={over} max_abs_err={err} kernel {ms:.3f} ms "
                   f"plain {pms:.3f} ms", flush=True)
@@ -234,6 +272,75 @@ def kernel_phase(aligner, reads, dev, records):
             pms_sum += pms
     print("kernel dp_fused: record ms / plain_ms are sums over the 10 bucket x mode cases")
     records["dp_fused"] = dict(max_abs_err=total_err, ms=ms_sum, plain_ms=pms_sum)
+    # the last case again with R = 8 runs: overflows to redo whatever the
+    # main-path capacity gave above
+    _, meta = banded_align_runs(q, t, ql, tl, bd, **dict(kw, R=8))
+    forced = keep_overflows(meta, q, t, ql, tl, bd, is_global)
+    print(f"kernel dp_fused: {forced} problems overflow R=8 at M={M} N={N}", flush=True)
+    return overflowed
+
+
+def wavefront_phase(dev, records, overflowed):
+    """Kernel D and the traceback kernel against their plain versions, and
+    kernel C's run-overflow problems redone through both on the card and
+    on the CPU."""
+    import torch
+
+    from ma_tpu_torch.ops.dp import DPParams, banded_align_traceback_packed, rle_ops
+    from ma_tpu_torch.ops.dp_wavefront import (
+        banded_align_wavefront,
+        banded_align_wavefront_plain,
+        traceback_dirs,
+        traceback_dirs_plain,
+    )
+
+    rng = np.random.default_rng(11)
+    params = DPParams()
+    sums = {"dp_wavefront": [0, 0.0, 0.0], "dp_traceback": [0, 0.0, 0.0]}
+    for P, M, N, is_global in ((256, 1024, 4096, False), (128, 512, 512, True)):
+        q, t, ql, tl, _, _ = dp_inputs(rng, P, M, N, is_global, dev)
+        bd = torch.full_like(ql, 512)
+        args = (q, t, ql, tl, bd, params, -1 if is_global else 200, is_global)
+        got = banded_align_wavefront(*args)
+        err = max_abs_err(got, banded_align_wavefront_plain(*args))
+        ms = time_ms(lambda: banded_align_wavefront(*args), 5)
+        pms = time_ms(lambda: banded_align_wavefront_plain(*args), 1)
+        print(f"kernel dp_wavefront: P={P} M={M} N={N} global={is_global} band=512 "
+              f"zdropped={int(got.zdropped.sum())} max_abs_err={err} kernel {ms:.3f} ms "
+              f"plain {pms:.3f} ms", flush=True)
+        if err:
+            raise AssertionError(f"dp_wavefront differs from its plain version at {M}x{N}")
+        si, sj = (ql - 1, tl - 1) if is_global else (got.max_i, got.max_j)
+        tb = traceback_dirs(got.dirs, si, sj)
+        terr = max_abs_err(tb, traceback_dirs_plain(got.dirs, si, sj))
+        tms = time_ms(lambda: traceback_dirs(got.dirs, si, sj), 5)
+        tpms = time_ms(lambda: traceback_dirs_plain(got.dirs, si, sj), 1)
+        print(f"kernel dp_traceback: P={P} M={M} N={N} longest path {int(tb[1].max())} "
+              f"max_abs_err={terr} kernel {tms:.3f} ms plain {tpms:.3f} ms", flush=True)
+        if terr:
+            raise AssertionError(f"dp_traceback differs from its plain version at {M}x{N}")
+        for name, e, a, b in (("dp_wavefront", err, ms, pms), ("dp_traceback", terr, tms, tpms)):
+            sums[name] = [max(sums[name][0], e), sums[name][1] + a, sums[name][2] + b]
+        del got, tb
+    print("kernel dp_wavefront / dp_traceback: record ms / plain_ms are sums over the 2 cases")
+    for name, (e, a, b) in sums.items():
+        records[name] = dict(max_abs_err=e, ms=a, plain_ms=b)
+
+    # ---- run-overflow redo: kernel D + traceback on the card vs the CPU
+    n_redo = 0
+    for q, t, ql, tl, bd, is_global in overflowed:
+        kw = dict(params=params, zdrop=-1 if is_global else 200, is_global=is_global)
+        g_ops, g_meta = banded_align_traceback_packed(q, t, ql, tl, bd, device=dev, **kw)
+        c_ops, c_meta = banded_align_traceback_packed(q, t, ql, tl, bd, device="cpu", **kw)
+        cig = lambda ops, meta, k: rle_ops(ops[k], *(int(v) for v in meta[:3, k]))
+        if not np.array_equal(g_meta, c_meta) or any(
+                cig(g_ops, g_meta, k) != cig(c_ops, c_meta, k) for k in range(len(ql))):
+            raise AssertionError("redo cigars differ between the card and the CPU")
+        n_redo += len(ql)
+    print(f"redo: {n_redo} run-overflow problems of kernel C redone through dp_wavefront + "
+          f"dp_traceback, cigars identical on the card and the CPU", flush=True)
+    if not n_redo:
+        raise AssertionError("no run-overflow problem to redo")
 
 
 def placement(sam: str, starts: np.ndarray) -> float:
@@ -251,6 +358,153 @@ def placement(sam: str, starts: np.ndarray) -> float:
         if abs(int(f[3]) - 1 - int(starts[i])) <= PLACE_TOL and bool(flag & 16) == bool(i % 2):
             placed += 1
     return placed / len(starts)
+
+
+def simulate_long(n_reads: int = LONG_READS, read_len: int = LONG_LEN,
+                  genome_len: int = LONG_GENOME_BP, seed: int = 4242):
+    """scripts/long_read_bench.py's workload, its generator call for call
+    (random genome; reads at 1% substitutions, 2% insertions, 2% deletions;
+    odd reads reverse complemented), with INV_LEN bases in the middle of
+    every INV_EVERY-th read inverted. Returns (pack, reads, starts)."""
+    from ma_tpu.containers.nucseq import NucSeq, revcomp_codes
+    from ma_tpu.containers.pack import Pack
+
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, size=genome_len).astype(np.uint8)
+    pack = Pack.empty()
+    pack.append("chrL", genome)
+
+    def simulate(p, L):
+        out, i = [], p
+        while len(out) < L and i < genome_len:
+            r = rng.random()
+            if r < 0.02:
+                out.append(int(rng.integers(0, 4)))  # insertion
+                continue
+            if r < 0.04:
+                i += 1  # deletion
+                continue
+            c = int(genome[i])
+            if r < 0.05:
+                c = (c + int(rng.integers(1, 4))) % 4
+            out.append(c)
+            i += 1
+        return np.asarray(out[:L], np.uint8)
+
+    reads, starts = [], []
+    for i in range(n_reads):
+        p = int(rng.integers(0, genome_len - 2 * read_len))
+        codes = simulate(p, read_len)
+        if i % INV_EVERY == 0:
+            mid = len(codes) // 2
+            codes[mid : mid + INV_LEN] = revcomp_codes(codes[mid : mid + INV_LEN]).copy()
+        if i % 2:
+            codes = revcomp_codes(codes)
+        reads.append(NucSeq(codes, name=f"L{i}_{p}"))
+        starts.append(p)
+    return pack, reads, np.asarray(starts)
+
+
+def long_params():
+    """The PacBio preset with minimizer seeding and small inversions on."""
+    from ma_tpu.config.parameters import ParameterSetManager
+
+    mgr = ParameterSetManager()
+    mgr.set_selected("PacBio")
+    mgr.selected.set("Seeding Technique", "minimizers")
+    mgr.selected.set("Detect Small Inversions", True)
+    return mgr
+
+
+def long_placement(sam: str, starts: np.ndarray):
+    """long_read_bench.py's count: (primary records within LONG_PLACE_TOL of
+    the simulated start, primary records)."""
+    ok = n_prim = 0
+    for line in sam.splitlines():
+        if line.startswith("@"):
+            continue
+        f = line.split("\t", 4)
+        if int(f[1]) & 0x900:
+            continue
+        n_prim += 1
+        if abs(int(f[3]) - 1 - int(starts[int(f[0][1:].split("_")[0])])) <= LONG_PLACE_TOL:
+            ok += 1
+    return ok, n_prim
+
+
+def long_phase(dev, pack, reads, starts, check_reads: int = LONG_CHECK_READS) -> dict:
+    """The long-read main path on `dev`: warm-up, PASSES counted passes, one
+    pass under the stage timer, and the first check_reads reads against the
+    CPU port. Returns each kernel's launches in the counted passes."""
+    import torch
+
+    from ma_tpu.utils.profile import AnalyzeRuntimes
+    from ma_tpu_torch import kernels
+    from ma_tpu_torch.pipeline.aligner import Aligner
+
+    def run(al, rs):
+        buf = io.StringIO()
+        n = al.align_to_sam(iter(rs), buf, batch_size=LONG_BATCH)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        if n != len(rs):
+            raise AssertionError(f"align_to_sam returned {n} of {len(rs)} reads")
+        return buf.getvalue()
+
+    aligner = Aligner(pack, long_params(), device=dev)
+    t0 = time.perf_counter()
+    run(aligner, reads[:8])
+    print(f"long warm-up: {time.perf_counter() - t0:.1f} s", flush=True)
+    for k in kernels.KERNELS:
+        k.launches = 0
+    aligner.n_inversion_windows = aligner.n_inversions = 0
+    walls, sam = [], ""
+    for _ in range(PASSES):
+        t0 = time.perf_counter()
+        sam = run(aligner, reads)
+        walls.append(time.perf_counter() - t0)
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    wall = statistics.median(walls)
+    ok, n_prim = long_placement(sam, starts)
+    inv_recs = sum(1 for r in sam.splitlines() if not r.startswith("@")
+                   and int(r.split("\t", 2)[1]) & 0x800 and r.split("\t", 5)[4] == "0")
+    print(f"long: {len(reads)} reads x {LONG_LEN} bp, walls {['%.3f' % w for w in walls]} s, "
+          f"{len(reads) / wall:.2f} reads/s, {len(reads) * LONG_LEN / wall / 1e6:.3f} Mbases/s "
+          f"(median); placement {ok}/{n_prim} primary records within {LONG_PLACE_TOL} bp "
+          f"({ok / len(reads):.2%} of reads); per pass: inversion windows "
+          f"{aligner.n_inversion_windows // PASSES}, inversion alignments "
+          f"{aligner.n_inversions // PASSES}, supplementary MAPQ-0 records {inv_recs}; "
+          f"overflow reads {aligner.n_overflow_reads}, rescued {aligner.n_rescued_reads}",
+          flush=True)
+    print(f"long launches: {json.dumps(launches)}", flush=True)
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel of the long-read path never launched: {launches}")
+    if ok < 0.98 * len(reads):
+        raise AssertionError(f"long-read placement {ok}/{len(reads)} < 98%")
+
+    # ---- host-clock stage breakdown of one more pass (not counted above)
+    aligner.profiler = AnalyzeRuntimes()
+    run(aligner, reads)
+    print(aligner.profiler.analyze())
+    aligner.profiler = None
+
+    # ---- cross-check against the CPU port
+    sub = reads[:check_reads]
+    t0 = time.perf_counter()
+    cpu_sam = run(Aligner(pack, long_params(), device=torch.device("cpu")), sub)
+    dev_sam = run(aligner, sub)
+    inv = sum(1 for r in cpu_sam.splitlines() if not r.startswith("@")
+              and int(r.split("\t", 2)[1]) & 0x800 and r.split("\t", 5)[4] == "0")
+    print(f"long cross-check: {len(sub)} reads, CPU port {time.perf_counter() - t0:.1f} s, "
+          f"SAM {len(cpu_sam)} bytes, {inv} supplementary MAPQ-0 records, "
+          f"identical={dev_sam == cpu_sam}", flush=True)
+    if dev_sam != cpu_sam:
+        a, b = dev_sam.splitlines(), cpu_sam.splitlines()
+        diff = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        raise AssertionError(f"long-read SAM differs between the card and the CPU at line {diff}")
+    if not inv:
+        raise AssertionError("the long-read cross-check holds no inversion record")
+    return launches
 
 
 def profile_pass(aligner, reads, wall_s: float) -> None:
@@ -315,9 +569,10 @@ def main() -> int:
     print(f"warm-up: {time.perf_counter() - t0:.1f} s", flush=True)
 
     records: dict = {}
-    kernel_phase(aligner, reads[:BATCH], dev, records)
+    overflowed = kernel_phase(aligner, reads[:BATCH], dev, records)
+    wavefront_phase(dev, records, overflowed)
 
-    # ---- slice: the main path, counted
+    # ---- short reads: the native path, counted
     for k in kernels.KERNELS:
         k.launches = 0
     walls, sam = [], ""
@@ -330,7 +585,8 @@ def main() -> int:
         sam = buf.getvalue()
         if n != len(reads):
             raise AssertionError(f"align_to_sam returned {n} of {len(reads)} reads")
-    launches = {k.name: k.launches for k in kernels.KERNELS}
+    launches = {k.name: k.launches for k in (kernels.SOC_SWEEP, kernels.LINESWEEP,
+                                             kernels.DP_FUSED)}
     rps = len(reads) / statistics.median(walls)
     share = placement(sam, starts)
     print(f"slice: walls {['%.3f' % w for w in walls]} s, {rps:.1f} reads/s (median), "
@@ -367,6 +623,14 @@ def main() -> int:
         a, b = gpu_sam.getvalue().splitlines(), cpu_sam.getvalue().splitlines()
         diff = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
         raise AssertionError(f"GPU and CPU SAM differ at line {diff}")
+
+    # ---- long reads with small inversions: the Python NW path, counted
+    t0 = time.perf_counter()
+    pack_l, reads_l, starts_l = simulate_long()
+    print(f"long workload: genome {LONG_GENOME_BP} bp, {len(reads_l)} reads x {LONG_LEN} bp, "
+          f"inversions of {INV_LEN} bp in every {INV_EVERY}th read "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    launches = long_phase(dev, pack_l, reads_l, starts_l)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 

@@ -10,8 +10,9 @@ which a wrapper runs only for tensors on the CPU.
 Nothing here imports jax. Every entry point that allocates takes an explicit
 `device`; there is no default device.
 
-Ported slice: single-end reads, `Seeding Technique = minimizers`,
-`Aligner.align_to_sam` (see README.md, "PyTorch/CUDA port").
+Ported slice: single-end short and long reads, `Seeding Technique =
+minimizers`, small inversions, `Aligner.align_to_sam` (see README.md,
+"PyTorch/CUDA port").
 """
 
 __version__ = "0.1.0"

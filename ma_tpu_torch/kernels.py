@@ -26,7 +26,8 @@ import torch
 PKG = Path(__file__).resolve().parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-SOURCES = ("errors.cu", "soc_sweep.cu", "linesweep.cu", "dp_fused.cu")
+SOURCES = ("errors.cu", "soc_sweep.cu", "linesweep.cu", "dp_fused.cu", "dp_wavefront.cu",
+           "dp_traceback.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -151,4 +152,10 @@ LINESWEEP = Kernel("linesweep", "ma_linesweep", "ppppppppii",
 DP_FUSED = Kernel("dp_fused", "ma_dp_fused", "pppppp" + "i" * 12,
                   "ma_tpu_torch/csrc/dp_fused.cu",
                   "ma_tpu/ops/dp_fused.py:100")
-KERNELS = (SOC_SWEEP, LINESWEEP, DP_FUSED)
+DP_WAVEFRONT = Kernel("dp_wavefront", "ma_dp_wavefront", "pppppp" + "i" * 11,
+                      "ma_tpu_torch/csrc/dp_wavefront.cu",
+                      "ma_tpu/ops/dp_pallas.py:53")
+DP_TRACEBACK = Kernel("dp_traceback", "ma_dp_traceback", "ppppiii",
+                      "ma_tpu_torch/csrc/dp_traceback.cu",
+                      "ma_tpu/ops/dp.py:209")
+KERNELS = (SOC_SWEEP, LINESWEEP, DP_FUSED, DP_WAVEFRONT, DP_TRACEBACK)

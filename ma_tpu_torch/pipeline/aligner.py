@@ -1,15 +1,19 @@
 """Single-end alignment pipeline (port of the minimizer path of
-ma_tpu/pipeline/aligner.py).
+ma_tpu/pipeline/aligner.py under its reference setting, the fused DP with
+the native finish).
 
     minimizer seeding -> seed lumping / min length -> SoC -> harmonization
     -> set packing                                        (device, torch)
-    -> DP planning (C++) -> fused DP + traceback (device, kernel C)
-    -> CIGAR assembly, mapping quality, SAM (C++)
+    -> DP planning -> banded DP + traceback (device, kernels C and D)
+    -> CIGAR assembly, mapping quality, small inversions, SAM
 
-The device stage runs on the Aligner's `device` (kernels A/B/C on a CUDA
-device, their plain versions on the CPU). The finish always takes the native
-C++ path of ma_tpu.pipeline.finish_native, shared with ma_tpu. Options the
-port does not cover yet raise NotImplementedError naming the option.
+The device stage runs on the Aligner's `device` (kernels on a CUDA device,
+their plain versions on the CPU). A batch whose DP problems all fit the
+fused buckets takes the native C++ planner and assembler of
+ma_tpu.pipeline.finish_native (shared with ma_tpu); any other batch (long
+reads) takes the Python planner and assembler of pipeline/nw.py, exactly
+where ma_tpu does. Options the port does not cover yet raise
+NotImplementedError naming the option.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ from ma_tpu_torch.ops.dp import _dp_desc_runs_fused
 from ma_tpu_torch.ops.filters import min_length, seed_lump
 from ma_tpu_torch.ops.harmonize import HarmBatch, harmonization
 from ma_tpu_torch.ops.soc import SoCBatch, soc_collect
+from ma_tpu_torch.pipeline.inversions import small_inversions
 from ma_tpu_torch.pipeline.nw import DPProblem, NWAligner, NWConfig
 
 
@@ -237,17 +242,18 @@ class Aligner:
         self.cap_boost = 1
         self.n_rescued_reads = 0
         self._in_rescue = False
+        # small-inversion windows re-aligned, and inversion alignments found
+        self.n_inversion_windows = 0
+        self.n_inversions = 0
 
     def _check_supported(self) -> None:
         """The ported slice: single-end minimizer seeding, no SDUST, no
-        small inversions, no NGMLR tags."""
+        NGMLR tags."""
         g = self.pset.get
         if str(g("Seeding Technique")) != "minimizers":
             raise NotImplementedError(f"Seeding Technique = {g('Seeding Technique')}")
         if int(g("Minimizers - SDUST Threshold")) > 0:
             raise NotImplementedError("Minimizers - SDUST Threshold")
-        if bool(g("Detect Small Inversions")):
-            raise NotImplementedError("Detect Small Inversions")
         if bool(g("Emulate NGMLR's tag output")):
             raise NotImplementedError("Emulate NGMLR's tag output")
         if bool(g("Use Paired Reads")):
@@ -301,9 +307,12 @@ class Aligner:
         return self.collect_batch(self.plan_batch(reads, data, meta, seqs_d, seqs))
 
     def plan_batch(self, reads: Sequence[NucSeq], data_d, meta_d, seqs_dev, seqs_np):
-        """Download the packed sets, plan the DP problems (C++) and launch
-        the fused DP. Returns the pending state for collect_batch."""
-        nw = NWAligner(self.nw_cfg, self.text_dev, seqs_dev)
+        """Download the packed sets, plan the DP problems and launch the DP:
+        the native C++ plan when every problem fits the fused buckets, the
+        Python planner otherwise. Returns ("native" | "python", state) for
+        collect_batch."""
+        nw = NWAligner(self.pack, self.nw_cfg, self.text_dev, seqs_dev, self.text_host,
+                       seqs_np, self.profiler)
         with stage_timer(self.profiler, "device stage wait"):
             # meta word: bit0 valid, bit1 overflow, bits2-9 soc_of, bits10+ n_seeds
             mw = meta_d.cpu().numpy().reshape(seqs_np.shape[0], -1)
@@ -316,10 +325,36 @@ class Aligner:
             hqlr = data_d[:, : int(hn.sum())].cpu().numpy()
         # data row0 = q_start << 16 | length, row1 = ref_start
         hq, hl, hr = hqlr[0] >> 16, hqlr[0] & 0xFFFF, hqlr[1]
-        return self._plan_native(reads, nw, seqs_np, hq, hl, hr, hn, hsoc)
+        state = self._plan_native(reads, nw, seqs_np, hq, hl, hr, hn, hsoc)
+        if state is not None:
+            return ("native", state)
+        return ("python", self._plan_python(reads, nw, hq, hl, hr, hn, hsv, hsoc))
+
+    def _plan_python(self, reads, nw, hq, hl, hr, hn, hsv, hsoc):
+        """Python planning of every valid seed set, then the bucketed DP
+        launches (pipeline/nw.py). Returns (reads, nw, plans)."""
+        G = hn.shape[1]
+        offs = np.concatenate(([0], np.cumsum(hn.reshape(-1))))
+        plans = []
+        with stage_timer(self.profiler, "host DP planning"):
+            for b in range(len(reads)):
+                codes = reads[b].codes
+                for gset in np.nonzero(hsv[b])[0]:
+                    s, e = offs[b * G + gset], offs[b * G + gset + 1]
+                    if s == e:
+                        continue
+                    seeds = [(int(hq[k]), int(hl[k]), int(hr[k])) for k in range(s, e)]
+                    out = nw.plan_set(codes, seeds, read_idx=b)
+                    if out is not None:
+                        plans.append((b, int(hsoc[b, gset]), out))
+        nw.dispatch_batches()
+        return reads, nw, plans
 
     def _plan_native(self, reads, nw, seqs_np, hq, hl, hr, hn, hsoc):
-        """C++ planning + bucketed fused-DP launches."""
+        """C++ planning + bucketed fused-DP launches. Returns the pending
+        state, or None where ma_tpu takes its Python path: the planner's
+        output overflowed, or a problem exceeds the fused buckets (query >
+        256 or reference > 768)."""
         B, G = hn.shape
         flat_n = hn.reshape(-1)
         sel = np.flatnonzero(flat_n)  # candidate sets (invalid sets have n = 0)
@@ -334,13 +369,11 @@ class Aligner:
                 set_off, set_read, set_soc,
             )
         if planned is None:
-            raise RuntimeError("finish_native.plan: planner output overflow")
+            return None
         desc, toks, sbr = planned
         n_prob = len(desc)
         if n_prob and (int(desc[:, 2].max()) > 256 or int(desc[:, 5].max()) > 768):
-            raise NotImplementedError(
-                "DP problems beyond the fused buckets (query > 256 or reference > 768)"
-            )
+            return None
         launched = []
         with stage_timer(self.profiler, "dp dispatch"):
             if n_prob:
@@ -480,14 +513,30 @@ class Aligner:
         return results
 
     def collect_batch(self, state) -> List[List[Alignment]]:
-        """Wait for the DP, assemble, mapping quality, overflow rescue."""
-        results = self._alignments(self._assemble_native(state))
-        return self._maybe_rescue(state[0], results, state[1])
+        """Wait for the DP, assemble, mapping quality, small inversions,
+        overflow rescue."""
+        kind, st = state
+        if kind == "native":
+            results = self._alignments(self._assemble_native(st))
+            return self._maybe_rescue(st[0], results, st[1])
+        reads, nw, plans = st
+        with stage_timer(self.profiler, "device banded DP + traceback"):
+            nw.collect_batches()
+        per_read: List[List[Alignment]] = [[] for _ in reads]
+        with stage_timer(self.profiler, "host CIGAR assembly"):
+            for b, strip, (plan, begin_ref, ref) in plans:
+                aln = nw.assemble(plan, begin_ref, ref, reads[b].codes)
+                aln.stats.index_of_strip = strip
+                aln.stats.name = reads[b].name
+                per_read[b].append(aln)
+        return self._maybe_rescue(reads, self._quality_phase(reads, per_read), nw)
 
     def _quality_phase(self, reads, per_read) -> List[List[Alignment]]:
+        """Mapping quality, then small inversions (after mapping quality, so
+        the inversions keep their MAPQ of 0)."""
         g = self.pset.get
         with stage_timer(self.profiler, "host mapping quality"):
-            return [
+            result = [
                 mapping_quality(
                     alns, len(reads[b]), match=int(g("Match Score")),
                     max_supplementary=int(g("Number Supplementary Alignments")),
@@ -497,6 +546,17 @@ class Aligner:
                 )
                 for b, alns in enumerate(per_read)
             ]
+        if bool(g("Detect Small Inversions")):
+            with stage_timer(self.profiler, "small inversions"):
+                n_win, n_inv = small_inversions(
+                    result, reads, self.pack, device=self.device, params=self.nw_cfg.params,
+                    band=self.nw_cfg.band_ext, zdrop_inv=int(g("Z Drop Inversions")),
+                    harm_score_min=int(g("Minimal Harmonization Score")),
+                    disable_heuristics=bool(g("Disable All Heuristics")),
+                )
+            self.n_inversion_windows += n_win
+            self.n_inversions += n_inv
+        return result
 
     # --------------------------------------------------------------- frontend
     def align_to_sam(self, reads: Iterable[NucSeq], out: IO[str], batch_size: int = 256,
@@ -514,6 +574,8 @@ class Aligner:
         )
         omit_sec = bool(g("Omit Secondary Alignments"))
         omit_sup = bool(g("Omit Supplementary Alignments"))
+        # small inversions need Alignment objects
+        sam_native = not bool(g("Detect Small Inversions"))
         n = 0
 
         def run(bucket: List[NucSeq]):
@@ -523,10 +585,12 @@ class Aligner:
             with stage_timer(self.profiler, "device seed+soc+harmonize"):
                 _harm, _soc, data, meta, seqs_d = self.run_device_stage(seqs, lens)
             state = self.plan_batch(bucket, data, meta, seqs_d, seqs)
-            if state[1].overflow_flags.any():  # the rescue needs Alignment objects
+            kind, st = state
+            # the rescue needs Alignment objects
+            if kind != "native" or not sam_native or st[1].overflow_flags.any():
                 results = self.collect_batch(state)
             else:
-                kind, res = self._collect_native_sam(state, omit_sec, omit_sup)
+                kind, res = self._collect_native_sam(st, omit_sec, omit_sup)
                 if kind == "sam":
                     with stage_timer(self.profiler, "host SAM write"):
                         writer.write_text(res.decode("ascii"))

@@ -87,6 +87,36 @@ def test_dp_fused_kernel(cuda, is_global):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+@pytest.mark.parametrize("is_global,zdrop,M,N,state", [
+    (True, -1, 64, 128, "smem"), (False, 30, 64, 128, "smem"),
+    (False, 200, 2048, 1024, "smem"), (True, -1, 96, 200, "scratch"),
+])
+def test_dp_wavefront_and_traceback_kernels(cuda, monkeypatch, is_global, zdrop, M, N, state):
+    from ma_tpu_torch.ops import dp_wavefront as W
+    from ma_tpu_torch.ops.dp import DPParams
+
+    if state == "scratch":  # the state in global scratch instead of shared memory
+        monkeypatch.setattr(W, "SMEM_STATE_BYTES", 0)
+    rng = np.random.default_rng(M + int(is_global))
+    P = 40
+    q = rng.integers(0, 4, (P, M))
+    t = np.concatenate([q, rng.integers(0, 4, (P, N))], 1)[:, :N]
+    t[rng.random(t.shape) < 0.05] = rng.integers(0, 4)
+    t[:, 20:23] = 4
+    dev = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int32, device=cuda)
+    args = (dev(q), dev(t), dev(rng.integers(1, M + 1, P)), dev(rng.integers(1, N + 1, P)),
+            dev(rng.integers(5, 60, P)), DPParams(), zdrop, is_global)
+    got = W.banded_align_wavefront(*args)
+    torch.cuda.synchronize()
+    want = W.banded_align_wavefront_plain(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    si = torch.where(torch.arange(P, device=cuda) % 7 == 0, -1, got.max_i)
+    tb = W.traceback_dirs(got.dirs, si, got.max_j)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(tb, W.traceback_dirs_plain(got.dirs, si,
+                                                                            got.max_j)))
+
+
 def test_kernels_count_launches(cuda):
     from ma_tpu_torch import kernels
     from ma_tpu_torch.ops.harmonize_cuda import linesweep_sorted

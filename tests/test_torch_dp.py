@@ -163,3 +163,72 @@ def test_desc_mode_matches():
         assert np.array_equal(np.asarray(jr), tr.numpy())
         cig = TD.packed_runs_to_cigars(tr.numpy(), tc[0])
         assert cig == JD.packed_runs_to_cigars(np.asarray(jr), np.asarray(jc[0]))
+
+
+@pytest.mark.parametrize("is_global", [True, False])
+def test_run_overflow_redo_matches_ma_tpu(is_global, monkeypatch):
+    """Problems whose runs overflow kernel C's run buffer (forced with
+    R = 4) are redone through kernel D + the traceback kernel: the cigars of
+    the native path's redo_one and of the Python path's _redo_batched equal
+    ma_tpu's _redo_one (MA_TPU_DP=fused: the XLA anti-diagonal DP)."""
+    from ma_tpu.containers.pack import Pack
+    from ma_tpu.pipeline.nw import DPProblem as JProblem
+    from ma_tpu.pipeline.nw import NWAligner as JNW
+    from ma_tpu_torch.pipeline.nw import DPProblem, NWAligner, NWConfig
+
+    rng = np.random.default_rng(21)
+    B, L, T, P, M, N = 2, 400, 4000, 10, 64, 128
+    seqs = rng.integers(0, 4, (B, L)).astype(np.uint8)
+    text = rng.integers(0, 4, T).astype(np.uint8)
+    desc = np.zeros((P, 8), np.int32)
+    for k in range(P):
+        q_off, q_rev, t_rev, t_start = int(rng.integers(0, L - M)), k % 2, (k // 2) % 2, 60 * k
+        qs = seqs[k % B, q_off : q_off + M]
+        qs = qs[::-1] if q_rev else qs
+        r = rng.random(M)  # an indel every ~7 bases: many runs
+        ts = np.insert(qs[r >= 0.07], np.flatnonzero(r[r >= 0.07] > 0.93),
+                       rng.integers(0, 4, int((r[r >= 0.07] > 0.93).sum())))
+        text[t_start : t_start + len(ts)] = ts[::-1] if t_rev else ts
+        desc[k] = (k % B, q_off, M, q_rev, t_start, len(ts), t_rev, 40)
+    d8 = torch.as_tensor(desc.T.copy())
+    q, t, qlen, tlen, band = TD._desc_operands(torch.as_tensor(text), torch.as_tensor(seqs),
+                                               d8, M, N)
+    zdrop = -1 if is_global else 200
+    _, meta = banded_align_runs(q, t, qlen, tlen, band, M=M, N=N, zdrop=zdrop,
+                                is_global=is_global, R=4)
+    over = np.flatnonzero(meta[5].numpy())
+    assert len(over) >= P // 2
+
+    pack = Pack.empty()
+    pack.append("g", text)
+    monkeypatch.setenv("MA_TPU_DP", "fused")
+    jax.clear_caches()
+    try:
+        jnw = JNW(pack, text_dev=jnp.asarray(text), seqs_dev=jnp.asarray(seqs))
+        want = []
+        for k in over:
+            jnw._problems.append(JProblem(q=None, t=None, band=40, is_global=is_global,
+                                          read_idx=int(desc[k, 0]), q_off=int(desc[k, 1]),
+                                          q_len=M, q_rev=int(desc[k, 3]),
+                                          t_start=int(desc[k, 4]), t_len=int(desc[k, 5]),
+                                          t_rev=int(desc[k, 6])))
+            want.append(jnw._redo_one(len(jnw._problems) - 1, is_global))
+    finally:
+        jax.clear_caches()
+    nw = NWAligner(pack, NWConfig(), torch.as_tensor(text), torch.as_tensor(seqs), text, seqs)
+    got = [nw.redo_one(DPProblem.from_desc(desc[k], is_global)) for k in over]
+    assert got == want and all(len(c) > 4 for c in got)
+    # a problem that carries its own host operands
+    own = []
+    for k in over:
+        p = DPProblem.from_desc(desc[k], is_global)
+        p.q, p.t = (a.numpy()[k, : int(n[k])] for a, n in ((q, qlen), (t, tlen)))
+        p.read_idx = -1
+        own.append(nw.redo_one(p))
+    assert own == want
+    nw._problems = [DPProblem.from_desc(desc[k], is_global) for k in over]
+    for p in nw._problems:
+        p.max_i = 0  # the fused forward pass's end cell: kept, only the cigar is redone
+    nw._redo_batched(range(len(over)))
+    assert [p.cigar for p in nw._problems] == want
+    assert all(p.max_i == 0 for p in nw._problems)
