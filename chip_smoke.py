@@ -9,9 +9,11 @@ Phases (any failure raises and exits non-zero before the last line):
   1. card: name and power limit, as nvidia-smi reports them;
   2. build: nvcc compiles ma_tpu_torch/csrc/*.cu for sm_90a into
      ma_tpu_torch/_build/;
-  3. kernels A, B, C: each against its plain PyTorch version on the same
-     CUDA inputs at main-path shapes (exact equality), with both times (CUDA
-     events);
+  3. kernels A, B, C, C': each against its plain PyTorch version on the
+     same CUDA inputs at main-path shapes (exact equality), with both times
+     (CUDA events); C' (the DP kernel MA_TPU_DP_V2=1 selects) also against C
+     at the five fused buckets, both modes, P = 4096, and against the plain
+     version alone at (256, 4096) extension, which C cannot take;
   4. wavefront kernels: kernel D against its plain version at an extension
      bucket (P = 256, M = 1024, N = 4096, band 512, z-drop 200) and a global
      inversion-like bucket (P = 128, M = N = 512, band 512), exact on every
@@ -27,7 +29,14 @@ Phases (any failure raises and exits non-zero before the last line):
      of reads placed at their simulated position and strand (must be
      >= 99%); then the first 512 reads through the same port on
      device="cpu" must give byte-identical SAM;
-  6. long reads: scripts/long_read_bench.py's workload (256 reads of 20 kb
+  6. FMD seeding: the same workload through Aligner(device="cuda") with the
+     Default preset (maxSpan): reads/s (median of 3 passes after a warm-up),
+     placement (>= 99%), the launches of A, B, C and the host-clock stages;
+     one pass under MA_TPU_DP_V2=1 (C' launches, C does not, SAM identical
+     to the C pass); one pass of the Illumina preset (SMEMs, placement >=
+     99%); the first 512 reads of both presets on device="cpu" must give
+     byte-identical SAM;
+  7. long reads: scripts/long_read_bench.py's workload (256 reads of 20 kb
      over a random 10 Mbp genome, 1% substitutions, 2% insertions, 2%
      deletions, odd reads reverse complemented, default_rng(4242)) with a
      200 bp inverted stretch planted in the middle of every fourth read,
@@ -38,8 +47,9 @@ Phases (any failure raises and exits non-zero before the last line):
      launches in those passes (all five must launch); then the first 4 long
      reads on device="cpu" must give byte-identical SAM.
 
-The line before the last is the kernels' JSON record (launches from the
-long-read passes, which run all five kernels); the last line is
+The line before the last is the kernels' JSON record (each kernel's
+launches summed over the counted main-path passes of phases 5-7, each read
+with the counts set to 0 just before it); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 No JAX is imported.
 """
@@ -125,6 +135,17 @@ def max_abs_err(a, b) -> int:
     return err
 
 
+def reset_launches() -> None:
+    from ma_tpu_torch import kernels
+
+    for k in kernels.KERNELS:
+        k.launches = 0
+
+
+def read_launches(ks) -> dict:
+    return {k.name: k.launches for k in ks}
+
+
 def soc_inputs(aligner, reads, dev):
     """Kernel A's operands from the first batch of the slice (minimizer
     seeds -> lumping -> min length -> SoC candidate table)."""
@@ -199,13 +220,15 @@ def dp_inputs(rng, P: int, M: int, N: int, is_global: bool, dev):
 
 
 def kernel_phase(aligner, reads, dev, records):
-    """Kernels A, B, C against their plain versions. Returns kernel C's
-    run-overflow problems as host arrays (q, t, qlen, tlen, band, is_global)
-    for the redo check of wavefront_phase."""
+    """Kernels A, B, C and C' against their plain versions (C' also against
+    C). Returns kernel C's run-overflow problems as host arrays (q, t, qlen,
+    tlen, band, is_global) for the redo check of wavefront_phase."""
     import torch
 
     from ma_tpu_torch.ops.dp import DPParams, run_capacity
-    from ma_tpu_torch.ops.dp_fused import banded_align_runs, banded_align_runs_plain
+    from ma_tpu_torch.ops.dp_fused import (
+        banded_align_runs, banded_align_runs_plain, banded_align_runs_v2,
+    )
     from ma_tpu_torch.ops.harmonize_cuda import linesweep_sorted, linesweep_sorted_plain
     from ma_tpu_torch.ops.soc_cuda import soc_sweep, soc_sweep_plain
 
@@ -238,9 +261,10 @@ def kernel_phase(aligner, reads, dev, records):
             total_err, ms_sum, pms_sum = err, ms, pms
     records["linesweep"] = dict(max_abs_err=total_err, ms=ms_sum, plain_ms=pms_sum)
 
-    # ---- C: fused DP at every (M, N) bucket, P = 4096, both modes
+    # ---- C and C': fused DP at every (M, N) bucket, P = 4096, both modes
     params = DPParams()
     total_err, ms_sum, pms_sum = 0, 0.0, 0.0
+    v2_err, v2_ms, v2_pms = 0, 0.0, 0.0
     overflowed = []
 
     def keep_overflows(meta, q, t, ql, tl, bd, is_global, cap=256):
@@ -256,22 +280,51 @@ def kernel_phase(aligner, reads, dev, records):
             kw = dict(M=M, N=N, params=params, zdrop=-1 if is_global else 200,
                       is_global=is_global, tb_last=tb, R=run_capacity(M))
             got = banded_align_runs(q, t, ql, tl, bd, **kw)
+            got2 = banded_align_runs_v2(q, t, ql, tl, bd, **kw)
             ref = banded_align_runs_plain(q, t, ql, tl, bd, **kw)
             err = max_abs_err(got, ref)
+            err2 = max_abs_err(got2, ref)
+            err_c = max_abs_err(got2, got)
             ms = time_ms(lambda: banded_align_runs(q, t, ql, tl, bd, **kw), 5)
+            ms2 = time_ms(lambda: banded_align_runs_v2(q, t, ql, tl, bd, **kw), 5)
             pms = time_ms(lambda: banded_align_runs_plain(q, t, ql, tl, bd, **kw), 1)
             over = int(got[1][5].sum())
             keep_overflows(got[1], q, t, ql, tl, bd, is_global)
             print(f"kernel dp_fused: P=4096 M={M} N={N} global={is_global} "
                   f"run_overflows={over} max_abs_err={err} kernel {ms:.3f} ms "
                   f"plain {pms:.3f} ms", flush=True)
+            print(f"kernel dp_fused_v2: P=4096 M={M} N={N} global={is_global} "
+                  f"max_abs_err={err2} (vs dp_fused {err_c}) kernel {ms2:.3f} ms "
+                  f"dp_fused {ms:.3f} ms plain {pms:.3f} ms", flush=True)
             if err:
                 raise AssertionError(f"dp_fused differs from its plain version at {M}x{N}")
+            if err2 or err_c:
+                raise AssertionError(f"dp_fused_v2 differs from its plain version or from "
+                                     f"dp_fused at {M}x{N}")
             total_err = max(total_err, err)
             ms_sum += ms
             pms_sum += pms
-    print("kernel dp_fused: record ms / plain_ms are sums over the 10 bucket x mode cases")
+            v2_err = max(v2_err, err2)
+            v2_ms += ms2
+            v2_pms += pms
+    print("kernel dp_fused / dp_fused_v2: record ms / plain_ms are sums over the 10 bucket x "
+          "mode cases")
     records["dp_fused"] = dict(max_abs_err=total_err, ms=ms_sum, plain_ms=pms_sum)
+    records["dp_fused_v2"] = dict(max_abs_err=v2_err, ms=v2_ms, plain_ms=v2_pms)
+    # C' at the widest fused bucket, (256, 4096) extension: the plain version only
+    q4, t4, ql4, tl4, bd4, tb4 = dp_inputs(rng, 4096, 256, 4096, False, dev)
+    kw4 = dict(M=256, N=4096, params=params, zdrop=200, is_global=False, tb_last=tb4,
+               R=run_capacity(256))
+    got2 = banded_align_runs_v2(q4, t4, ql4, tl4, bd4, **kw4)
+    err2 = max_abs_err(got2, banded_align_runs_plain(q4, t4, ql4, tl4, bd4, **kw4))
+    ms2 = time_ms(lambda: banded_align_runs_v2(q4, t4, ql4, tl4, bd4, **kw4), 3)
+    pms = time_ms(lambda: banded_align_runs_plain(q4, t4, ql4, tl4, bd4, **kw4), 1)
+    print(f"kernel dp_fused_v2: P=4096 M=256 N=4096 global=False "
+          f"run_overflows={int(got2[1][5].sum())} max_abs_err={err2} kernel {ms2:.3f} ms "
+          f"plain {pms:.3f} ms", flush=True)
+    if err2:
+        raise AssertionError("dp_fused_v2 differs from its plain version at 256x4096")
+    del q4, t4, got2
     # the last case again with R = 8 runs: overflows to redo whatever the
     # main-path capacity gave above
     _, meta = banded_align_runs(q, t, ql, tl, bd, **dict(kw, R=8))
@@ -455,15 +508,14 @@ def long_phase(dev, pack, reads, starts, check_reads: int = LONG_CHECK_READS) ->
     t0 = time.perf_counter()
     run(aligner, reads[:8])
     print(f"long warm-up: {time.perf_counter() - t0:.1f} s", flush=True)
-    for k in kernels.KERNELS:
-        k.launches = 0
+    reset_launches()
     aligner.n_inversion_windows = aligner.n_inversions = 0
     walls, sam = [], ""
     for _ in range(PASSES):
         t0 = time.perf_counter()
         sam = run(aligner, reads)
         walls.append(time.perf_counter() - t0)
-    launches = {k.name: k.launches for k in kernels.KERNELS}
+    launches = read_launches(kernels.KERNELS)
     wall = statistics.median(walls)
     ok, n_prim = long_placement(sam, starts)
     inv_recs = sum(1 for r in sam.splitlines() if not r.startswith("@")
@@ -477,8 +529,10 @@ def long_phase(dev, pack, reads, starts, check_reads: int = LONG_CHECK_READS) ->
           f"overflow reads {aligner.n_overflow_reads}, rescued {aligner.n_rescued_reads}",
           flush=True)
     print(f"long launches: {json.dumps(launches)}", flush=True)
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel of the long-read path never launched: {launches}")
+    path = {k: v for k, v in launches.items() if k != "dp_fused_v2"}
+    if min(path.values()) == 0 or launches["dp_fused_v2"]:
+        raise AssertionError(f"the long-read path did not run kernels A, B, C, D and the "
+                             f"traceback (and not C'): {launches}")
     if ok < 0.98 * len(reads):
         raise AssertionError(f"long-read placement {ok}/{len(reads)} < 98%")
 
@@ -505,6 +559,180 @@ def long_phase(dev, pack, reads, starts, check_reads: int = LONG_CHECK_READS) ->
     if not inv:
         raise AssertionError("the long-read cross-check holds no inversion record")
     return launches
+
+
+def first_diff(a: str, b: str) -> int:
+    """Index of the first line where two SAM texts differ."""
+    x, y = a.splitlines(), b.splitlines()
+    return next((i for i, (u, v) in enumerate(zip(x, y)) if u != v), min(len(x), len(y)))
+
+
+def fmd_stage_split(al, reads) -> str:
+    """Host-clock split of the FMD device stage on one batch, each part
+    ended by a device synchronize: seeding (with its state-machine steps),
+    seed extraction, and SoC + harmonization + packing."""
+    import torch
+
+    from ma_tpu_torch.ops import seeding
+    from ma_tpu_torch.ops.extract import extract_seeds
+    from ma_tpu_torch.pipeline.aligner import DeviceStageConfig, _stage_tail
+
+    seqs, lens = al._pad_batch(reads, len(reads))
+    cfg = DeviceStageConfig.from_params(al.pset, seqs.shape[1])
+    fmd, cs = al.fmd_dev(), al.contig_starts
+    seqs_d = torch.as_tensor(seqs, device=al.device)
+    lens_d = torch.as_tensor(lens, device=al.device)
+    steps = [0]
+    run = seeding._run
+
+    def counted(step, st, done_phase, iter_cap):
+        def one(x):
+            steps[0] += 1
+            return step(x)
+        return run(one, st, done_phase, iter_cap)
+
+    seed_fn = seeding.smem_seeding if cfg.seeding_technique == "SMEMs" else \
+        seeding.max_spanning_seeding
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seeding._run = counted
+    try:
+        segs = seed_fn(fmd, seqs_d, lens_d, max_segs=cfg.max_segs,
+                       min_ambiguity=cfg.min_ambiguity, max_ambiguity=cfg.max_ambiguity)
+    finally:
+        seeding._run = run
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    seeds = extract_seeds(fmd, segs, lens_d, cs, max_seeds=cfg.max_seeds,
+                          max_ambiguity=cfg.max_ambiguity, min_seed_len=cfg.min_seed_len,
+                          skip_ambiguous=cfg.skip_ambiguous, rectangular=cfg.rectangular)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    _stage_tail(cfg, seeds, lens_d, cs, fmd.n)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    return (f"{cfg.seeding_technique} device stage on {len(reads)} reads: seeding "
+            f"{t1 - t0:.3f} s ({steps[0]} steps, {(t1 - t0) / max(steps[0], 1) * 1e3:.2f} ms "
+            f"per step), extraction {t2 - t1:.3f} s ({int(seeds.n_seeds.sum())} seeds), SoC + "
+            f"harmonization + packing {t3 - t2:.3f} s")
+
+
+def fmd_phase(dev, pack, reads, starts) -> dict:
+    """The FMD seeding path on `dev`: the Default preset (maxSpan) counted
+    over PASSES passes after a warm-up, one pass under the stage timer, one
+    pass under MA_TPU_DP_V2=1 (C' instead of C, same SAM), one pass of the
+    Illumina preset (SMEMs), and the first CHECK_READS reads of both presets
+    against the CPU port. Returns each kernel's launches in the counted
+    passes and the two single passes."""
+    import os
+
+    import torch
+
+    from ma_tpu.config.parameters import ParameterSetManager
+    from ma_tpu.index.fmd_index import FMDIndex
+    from ma_tpu.utils.profile import AnalyzeRuntimes
+    from ma_tpu_torch import kernels
+    from ma_tpu_torch.pipeline.aligner import Aligner
+
+    t0 = time.perf_counter()
+    fmd = FMDIndex.build(pack)
+    print(f"fmd: index of {fmd.n} text positions built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    def aligner(preset, device):
+        mgr = ParameterSetManager()
+        mgr.set_selected(preset)
+        return Aligner(pack, mgr, device=device, fmd=fmd)
+
+    def run(al, rs):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        n = al.align_to_sam(iter(rs), buf, batch_size=BATCH)
+        if al.device.type == "cuda":
+            torch.cuda.synchronize()
+        if n != len(rs):
+            raise AssertionError(f"align_to_sam returned {n} of {len(rs)} reads")
+        return buf.getvalue(), time.perf_counter() - t0
+
+    total: dict = {k.name: 0 for k in kernels.KERNELS}
+
+    def count(launches):
+        for name, v in launches.items():
+            total[name] += v
+
+    al = aligner("Default", dev)
+    _, wall = run(al, reads[:BATCH])
+    print(f"fmd warm-up (index upload, one batch): {wall:.1f} s", flush=True)
+    reset_launches()
+    walls, sam = [], ""
+    for _ in range(PASSES):
+        sam, wall = run(al, reads)
+        walls.append(wall)
+    launches = read_launches(kernels.KERNELS)
+    count(launches)
+    rps = len(reads) / statistics.median(walls)
+    share = placement(sam, starts)
+    print(f"fmd maxSpan: walls {['%.3f' % w for w in walls]} s, {rps:.1f} reads/s (median), "
+          f"placed {share:.4%}, overflow reads {al.n_overflow_reads}, "
+          f"rescued {al.n_rescued_reads}", flush=True)
+    print(f"fmd launches: {json.dumps(launches)}", flush=True)
+    path = ("soc_sweep", "linesweep", "dp_fused")
+    if min(launches[k] for k in path) == 0 or launches["dp_fused_v2"]:
+        raise AssertionError(f"the FMD path did not run kernels A, B, C (and not C'): "
+                             f"{launches}")
+    if share < 0.99:
+        raise AssertionError(f"fmd placement {share:.4%} < 99%")
+
+    al.profiler = AnalyzeRuntimes()
+    run(al, reads)
+    print(al.profiler.analyze())
+    al.profiler = None
+    print("fmd split:", fmd_stage_split(al, reads[:BATCH]), flush=True)
+
+    # ---- one pass with C' as the fused DP
+    os.environ["MA_TPU_DP_V2"] = "1"
+    try:
+        reset_launches()
+        sam2, wall = run(al, reads)
+        launches = read_launches(kernels.KERNELS)
+    finally:
+        del os.environ["MA_TPU_DP_V2"]
+    count(launches)
+    print(f"fmd maxSpan, MA_TPU_DP_V2=1: {wall:.3f} s, {len(reads) / wall:.1f} reads/s, "
+          f"launches {json.dumps(launches)}, SAM identical to the C pass: {sam2 == sam}",
+          flush=True)
+    if not launches["dp_fused_v2"] or launches["dp_fused"]:
+        raise AssertionError(f"MA_TPU_DP_V2=1 did not take C' instead of C: {launches}")
+    if sam2 != sam:
+        raise AssertionError(f"SAM under C' differs from C's at line {first_diff(sam2, sam)}")
+
+    # ---- SMEMs: the Illumina preset
+    al_i = aligner("Illumina", dev)
+    run(al_i, reads[:BATCH])
+    reset_launches()
+    sam_i, wall = run(al_i, reads)
+    launches = read_launches(kernels.KERNELS)
+    count(launches)
+    share = placement(sam_i, starts)
+    print(f"fmd SMEMs (Illumina): {wall:.3f} s, {len(reads) / wall:.1f} reads/s, placed "
+          f"{share:.4%}, launches {json.dumps(launches)}", flush=True)
+    if min(launches[k] for k in path) == 0:
+        raise AssertionError(f"the SMEM path did not run kernels A, B, C: {launches}")
+    if share < 0.99:
+        raise AssertionError(f"SMEM placement {share:.4%} < 99%")
+    print("fmd split:", fmd_stage_split(al_i, reads[:BATCH]), flush=True)
+
+    # ---- both presets against the CPU port
+    sub = reads[:CHECK_READS]
+    for preset, gpu in (("Default", al), ("Illumina", al_i)):
+        gpu_sam, _ = run(gpu, sub)
+        cpu_sam, wall = run(aligner(preset, torch.device("cpu")), sub)
+        print(f"fmd cross-check {preset}: {len(sub)} reads, CPU port {wall:.1f} s, SAM "
+              f"{len(cpu_sam)} bytes, identical={gpu_sam == cpu_sam}", flush=True)
+        if gpu_sam != cpu_sam:
+            raise AssertionError(f"{preset}: GPU and CPU SAM differ at line "
+                                 f"{first_diff(gpu_sam, cpu_sam)}")
+    return total
 
 
 def profile_pass(aligner, reads, wall_s: float) -> None:
@@ -573,8 +801,7 @@ def main() -> int:
     wavefront_phase(dev, records, overflowed)
 
     # ---- short reads: the native path, counted
-    for k in kernels.KERNELS:
-        k.launches = 0
+    reset_launches()
     walls, sam = [], ""
     for _ in range(PASSES):
         buf = io.StringIO()
@@ -585,15 +812,16 @@ def main() -> int:
         sam = buf.getvalue()
         if n != len(reads):
             raise AssertionError(f"align_to_sam returned {n} of {len(reads)} reads")
-    launches = {k.name: k.launches for k in (kernels.SOC_SWEEP, kernels.LINESWEEP,
-                                             kernels.DP_FUSED)}
+    launches = read_launches(kernels.KERNELS)
+    total = dict(launches)
     rps = len(reads) / statistics.median(walls)
     share = placement(sam, starts)
     print(f"slice: walls {['%.3f' % w for w in walls]} s, {rps:.1f} reads/s (median), "
           f"placed {share:.4%}, overflow reads {aligner.n_overflow_reads}, "
           f"rescued {aligner.n_rescued_reads}", flush=True)
     print(f"slice launches: {json.dumps(launches)}", flush=True)
-    if min(launches.values()) == 0:
+    if min(launches[k.name] for k in (kernels.SOC_SWEEP, kernels.LINESWEEP,
+                                      kernels.DP_FUSED)) == 0:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
     if share < 0.99:
         raise AssertionError(f"placement {share:.4%} < 99%")
@@ -620,9 +848,12 @@ def main() -> int:
     print(f"cross-check: {len(sub)} reads, CPU port {time.perf_counter() - t0:.1f} s, "
           f"SAM {len(cpu_sam.getvalue())} bytes, identical={same}", flush=True)
     if not same:
-        a, b = gpu_sam.getvalue().splitlines(), cpu_sam.getvalue().splitlines()
-        diff = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
-        raise AssertionError(f"GPU and CPU SAM differ at line {diff}")
+        raise AssertionError(f"GPU and CPU SAM differ at line "
+                             f"{first_diff(gpu_sam.getvalue(), cpu_sam.getvalue())}")
+
+    # ---- FMD seeding (Default and Illumina presets), counted
+    for name, v in fmd_phase(dev, pack, reads, starts).items():
+        total[name] += v
 
     # ---- long reads with small inversions: the Python NW path, counted
     t0 = time.perf_counter()
@@ -630,14 +861,17 @@ def main() -> int:
     print(f"long workload: genome {LONG_GENOME_BP} bp, {len(reads_l)} reads x {LONG_LEN} bp, "
           f"inversions of {INV_LEN} bp in every {INV_EVERY}th read "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    launches = long_phase(dev, pack_l, reads_l, starts_l)
+    for name, v in long_phase(dev, pack_l, reads_l, starts_l).items():
+        total[name] += v
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
+    if min(total.values()) == 0:
+        raise AssertionError(f"a kernel never launched on the main paths: {total}")
 
     out = []
     for k in kernels.KERNELS:
         out.append(dict(name=k.name, route="cuda", source=k.source, replaces=k.replaces,
-                        launches=launches[k.name], **records[k.name]))
+                        launches=total[k.name], **records[k.name]))
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -1,7 +1,8 @@
 """Build, bind and launch the hand-written CUDA kernels under csrc/.
 
-All kernels are compiled in one nvcc call for sm_90a into one shared
-library with a plain C interface, loaded with ctypes. The build goes into
+Each source is compiled by its own nvcc process for sm_90a, all started
+together, and the objects are linked into one shared library with a plain C
+interface, loaded with ctypes. The build goes into
 `ma_tpu_torch/_build/` on first use (the library name carries a digest of
 the sources and flags, so an edited source is rebuilt). Nothing is built
 at import time: the CPU tests import every module of the package.
@@ -26,12 +27,12 @@ import torch
 PKG = Path(__file__).resolve().parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-SOURCES = ("errors.cu", "soc_sweep.cu", "linesweep.cu", "dp_fused.cu", "dp_wavefront.cu",
-           "dp_traceback.cu")
+SOURCES = ("errors.cu", "soc_sweep.cu", "linesweep.cu", "dp_fused.cu", "dp_fused_v2.cu",
+           "dp_wavefront.cu", "dp_traceback.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -63,20 +64,35 @@ def _digest() -> str:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the shared library (once per source digest).
-    Returns its path; the compiler's output is kept in `<lib>.log`."""
+    """Compile csrc/*.cu into the shared library (once per source digest):
+    one nvcc process per source, in parallel, then one link. Returns its
+    path; the compilers' output is kept in `<lib>.log`."""
     BUILD.mkdir(parents=True, exist_ok=True)
     so = BUILD / f"libma_tpu_kernels-{_digest()}.so"
     if so.is_file():
         return so
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = nvcc_path()
+    objs = [BUILD / f"{tag}.{Path(src).stem}.o" for src in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / src)]
+            for src, o in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    tmp = so.with_name(f"{tag}.tmp")
+    link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp),
+            *map(str, objs)]
+    failed = [(c, o) for c, p, o in zip(cmds, procs, outs) if p.returncode != 0]
+    res = None if failed else subprocess.run(link, capture_output=True, text=True)
     log = so.with_suffix(".log")
-    log.write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+    log.write_text("".join(" ".join(c) + "\n" + o for c, o in zip(cmds, outs))
+                   + ("" if res is None else " ".join(link) + "\n" + res.stdout + res.stderr))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed[0][0][-1]}:\n{failed[0][1][-4000:]}")
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr[-4000:]}")
     os.replace(tmp, so)
     return so
 
@@ -152,10 +168,13 @@ LINESWEEP = Kernel("linesweep", "ma_linesweep", "ppppppppii",
 DP_FUSED = Kernel("dp_fused", "ma_dp_fused", "pppppp" + "i" * 12,
                   "ma_tpu_torch/csrc/dp_fused.cu",
                   "ma_tpu/ops/dp_fused.py:100")
+DP_FUSED_V2 = Kernel("dp_fused_v2", "ma_dp_fused_v2", "pppppp" + "i" * 13,
+                     "ma_tpu_torch/csrc/dp_fused_v2.cu",
+                     "ma_tpu/ops/dp_fused.py:843")
 DP_WAVEFRONT = Kernel("dp_wavefront", "ma_dp_wavefront", "pppppp" + "i" * 11,
                       "ma_tpu_torch/csrc/dp_wavefront.cu",
                       "ma_tpu/ops/dp_pallas.py:53")
 DP_TRACEBACK = Kernel("dp_traceback", "ma_dp_traceback", "ppppiii",
                       "ma_tpu_torch/csrc/dp_traceback.cu",
                       "ma_tpu/ops/dp.py:209")
-KERNELS = (SOC_SWEEP, LINESWEEP, DP_FUSED, DP_WAVEFRONT, DP_TRACEBACK)
+KERNELS = (SOC_SWEEP, LINESWEEP, DP_FUSED, DP_FUSED_V2, DP_WAVEFRONT, DP_TRACEBACK)

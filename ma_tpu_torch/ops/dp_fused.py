@@ -1,5 +1,6 @@
-"""Fused banded DP + traceback: kernel C (csrc/dp_fused.cu) and its plain
-PyTorch version (port of ma_tpu/ops/dp_fused.py `banded_align_runs`).
+"""Fused banded DP + traceback: kernels C (csrc/dp_fused.cu) and C'
+(csrc/dp_fused_v2.cu) and their plain PyTorch version (port of
+ma_tpu/ops/dp_fused.py `banded_align_runs`).
 
 Contract of `banded_align_runs`: banded 2-piece affine DP with z-drop over
 [P, M] queries and [P, N] targets, traced back on the device into merged
@@ -14,8 +15,16 @@ later emits of the same op as the last stored run still merge into it.
 The plain version is `dp_rows.banded_align_rows` + `traceback_device_rows`
 + `pack_runs`. Where lastrow_max is NEG_INF, lastrow_arg is 0 here and on
 the card (the Pallas kernel leaves the first lane of its first tile there).
+
+C and C' share this contract, so they share the plain version. As in
+ma_tpu, `banded_align_runs` takes C' when MA_TPU_DP_V2=1 (read at each
+call) and C' tiles the row in at most 8 static tiles (`use_v2`); ma_tpu's
+further term PB2 >= 32 sizes TPU VMEM and holds for every shape
+(`_pick_pb_v2` never goes below 32), so it is left out.
 """
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -97,20 +106,33 @@ def banded_align_runs_plain(q, t, qlen, tlen, band, *, M: int, N: int,
     return runs, meta
 
 
-def banded_align_runs(q, t, qlen, tlen, band, *, M: int, N: int,
-                      params: DPParams = DPParams(), zdrop: int = -1,
-                      is_global: bool = True, tb_last=None, R: int = MAX_RUNS):
-    """Fused DP + traceback on the tensors' device: the plain version for CPU
-    tensors, kernel C for CUDA tensors. q [P, M], t [P, N] int32 codes;
-    qlen/tlen/band/tb_last [P]. Returns (runs [P, R], meta [8, P])."""
-    if q.device.type == "cpu":
-        return banded_align_runs_plain(q, t, qlen, tlen, band, M=M, N=N, params=params,
-                                       zdrop=zdrop, is_global=is_global,
-                                       tb_last=tb_last, R=R)
+def _pick_tj_v2(N: int) -> int:
+    """C' static tile width (ma_tpu/ops/dp_fused.py `_pick_tj_v2`): at most
+    8 tiles of TJ columns, TJ | N."""
+    if N <= 256:
+        return N
+    for cand in (256, 128):
+        if N % cand == 0 and N // cand <= 8:
+            return cand
+    c = ((N // 8 + 127) // 128) * 128
+    if c and N % c == 0:
+        return c
+    return N
+
+
+def use_v2(N: int) -> bool:
+    """Whether banded_align_runs takes C' for width N: MA_TPU_DP_V2=1 and a
+    row of at most 8 static tiles (which `_pick_tj_v2` gives every N >= 1,
+    as in ma_tpu)."""
+    tj = _pick_tj_v2(N)
+    return os.environ.get("MA_TPU_DP_V2", "0") == "1" and N % tj == 0 and N // tj <= 8
+
+
+def _operands(q, t, qlen, tlen, band, tb_last, M: int, N: int, R: int):
+    """Checked kernel operands and outputs: q [P, M], t [P, N], meta_in
+    [P, 4] (qlen, tlen, band, tb_last) int32; runs [P, R], meta [8, P]."""
     P = q.shape[0]
     dev = q.device
-    if N > 1024:
-        raise ValueError(f"dp_fused: N={N} exceeds one block of threads (1024)")
     q = q.to(torch.int32).contiguous()
     t = t.to(torch.int32).contiguous()
     kernels.check(q, "q", torch.int32, (P, M))
@@ -121,14 +143,56 @@ def banded_align_runs(q, t, qlen, tlen, band, *, M: int, N: int,
     kernels.check(meta_in, "meta_in", torch.int32, (P, 4))
     runs = torch.empty((P, R), dtype=torch.int32, device=dev)
     meta = torch.empty((8, P), dtype=torch.int32, device=dev)
+    return q, t, meta_in, runs, meta
+
+
+def _scores(params: DPParams):
+    return (params.match, params.mismatch, params.gap_open, params.gap_extend,
+            params.gap_open2, params.gap_extend2)
+
+
+def banded_align_runs_v2(q, t, qlen, tlen, band, *, M: int, N: int,
+                         params: DPParams = DPParams(), zdrop: int = -1,
+                         is_global: bool = True, tb_last=None, R: int = MAX_RUNS):
+    """Kernel C' on CUDA tensors (N <= 4096), the plain version on CPU
+    tensors; the contract of banded_align_runs."""
+    if q.device.type == "cpu":
+        return banded_align_runs_plain(q, t, qlen, tlen, band, M=M, N=N, params=params,
+                                       zdrop=zdrop, is_global=is_global,
+                                       tb_last=tb_last, R=R)
+    if N > 4096:
+        raise ValueError(f"dp_fused_v2: N={N} exceeds 256 threads x 16 columns (4096)")
+    q, t, meta_in, runs, meta = _operands(q, t, qlen, tlen, band, tb_last, M, N, R)
+    P = q.shape[0]
+    # direction rows streamed out by the kernel for its own traceback, each
+    # padded to a 16-byte multiple for the bulk copies
+    ldn = -(-N // 16) * 16
+    dirs = torch.empty((P, M, ldn), dtype=torch.uint8, device=q.device)
+    if P:
+        kernels.DP_FUSED_V2.launch(q, t, meta_in, runs, meta, dirs, P, M, N, ldn, R,
+                                   *_scores(params), zdrop, int(is_global))
+    return runs, meta
+
+
+def banded_align_runs(q, t, qlen, tlen, band, *, M: int, N: int,
+                      params: DPParams = DPParams(), zdrop: int = -1,
+                      is_global: bool = True, tb_last=None, R: int = MAX_RUNS):
+    """Fused DP + traceback on the tensors' device: the plain version for CPU
+    tensors; for CUDA tensors kernel C', where `use_v2(N)`, else kernel C.
+    q [P, M], t [P, N] int32 codes; qlen/tlen/band/tb_last [P]. Returns
+    (runs [P, R], meta [8, P])."""
+    if q.device.type == "cpu" or use_v2(N):
+        return banded_align_runs_v2(q, t, qlen, tlen, band, M=M, N=N, params=params,
+                                    zdrop=zdrop, is_global=is_global, tb_last=tb_last, R=R)
+    if N > 1024:
+        raise ValueError(f"dp_fused: N={N} exceeds one block of threads (1024)")
+    q, t, meta_in, runs, meta = _operands(q, t, qlen, tlen, band, tb_last, M, N, R)
+    P = q.shape[0]
     # direction bytes of every cell: [P, M, N] uint8 scratch for the
     # in-kernel traceback (227 KB of shared memory holds one 256 x 768
     # plane at most, so they live in global memory / L2)
-    dirs = torch.empty((P, M, N), dtype=torch.uint8, device=dev)
+    dirs = torch.empty((P, M, N), dtype=torch.uint8, device=q.device)
     if P:
-        kernels.DP_FUSED.launch(
-            q, t, meta_in, runs, meta, dirs, P, M, N, R,
-            params.match, params.mismatch, params.gap_open, params.gap_extend,
-            params.gap_open2, params.gap_extend2, zdrop, int(is_global),
-        )
+        kernels.DP_FUSED.launch(q, t, meta_in, runs, meta, dirs, P, M, N, R,
+                                *_scores(params), zdrop, int(is_global))
     return runs, meta

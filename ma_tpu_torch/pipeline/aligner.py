@@ -1,10 +1,10 @@
-"""Single-end alignment pipeline (port of the minimizer path of
-ma_tpu/pipeline/aligner.py under its reference setting, the fused DP with
-the native finish).
+"""Single-end alignment pipeline (port of ma_tpu/pipeline/aligner.py under
+its reference setting, the fused DP with the native finish).
 
-    minimizer seeding -> seed lumping / min length -> SoC -> harmonization
-    -> set packing                                        (device, torch)
-    -> DP planning -> banded DP + traceback (device, kernels C and D)
+    seeding: minimizers (sketch + CHD lookup, lumping, min length), FMD
+      maxSpan / SMEMs (bidirectional FM-index walks + seed extraction), or
+      host MEMs -> SoC -> harmonization -> set packing  (device, torch)
+    -> DP planning -> banded DP + traceback (device, kernels C / C' and D)
     -> CIGAR assembly, mapping quality, small inversions, SAM
 
 The device stage runs on the Aligner's `device` (kernels on a CUDA device,
@@ -27,14 +27,18 @@ from ma_tpu.config.parameters import ParameterSet, ParameterSetManager
 from ma_tpu.containers.alignment import Alignment
 from ma_tpu.containers.nucseq import NucSeq, revcomp_codes
 from ma_tpu.containers.pack import Pack
+from ma_tpu.index.fmd_index import FMDIndex
 from ma_tpu.io.sam import SamWriter
 from ma_tpu.pipeline import finish_native
 from ma_tpu.pipeline.quality import mapping_quality
 from ma_tpu.utils.profile import AnalyzeRuntimes, stage_timer
 from ma_tpu_torch.index.minimizer import MinimizerIndex, minimizer_seeding
 from ma_tpu_torch.ops.dp import _dp_desc_runs_fused
+from ma_tpu_torch.ops.extract import INT_MAX, SeedBatch, compute_delta, extract_seeds
 from ma_tpu_torch.ops.filters import min_length, seed_lump
 from ma_tpu_torch.ops.harmonize import HarmBatch, harmonization
+from ma_tpu_torch.ops.occ import FMDDev
+from ma_tpu_torch.ops.seeding import max_spanning_seeding, smem_seeding
 from ma_tpu_torch.ops.soc import SoCBatch, soc_collect
 from ma_tpu_torch.pipeline.inversions import small_inversions
 from ma_tpu_torch.pipeline.nw import DPProblem, NWAligner, NWConfig
@@ -182,23 +186,17 @@ def _soc_min_score(cfg: DeviceStageConfig, lens: torch.Tensor, genome_text_len: 
     return torch.clamp(rel, min=cfg.harm_score_min)
 
 
-def device_stage_mm(cfg: DeviceStageConfig, mmi, contig_starts: torch.Tensor,
-                    ref_len_forward: int, seqs: torch.Tensor, lens: torch.Tensor):
-    """Minimizer device stage: sketch + CHD lookup, seed filters, SoC,
-    harmonization, set packing. Returns (harm, soc, data, meta)."""
-    seeds = minimizer_seeding(
-        mmi, seqs, lens, contig_starts, ref_len_forward, k=cfg.mm_k, w=cfg.mm_w,
-        max_occ=cfg.max_ambiguity, max_seeds=cfg.max_seeds, rectangular=cfg.rectangular,
-    )
-    seeds = min_length(seed_lump(seeds), cfg.min_seed_len)
+def _stage_tail(cfg: DeviceStageConfig, seeds: SeedBatch, lens: torch.Tensor,
+                contig_starts: torch.Tensor, text_len: int):
+    """SoC, harmonization and set packing of a SeedBatch. Returns (harm,
+    soc, data, meta)."""
     soc = soc_collect(
         seeds, lens, contig_starts, match=cfg.match, extend=cfg.extend, gap=cfg.gap,
         fixed_width=cfg.fixed_soc_width, rectangular=cfg.rectangular,
-        min_score=_soc_min_score(cfg, lens, 2 * ref_len_forward),
-        max_socs=cfg.max_socs_collect,
+        min_score=_soc_min_score(cfg, lens, text_len), max_socs=cfg.max_socs_collect,
     )
     harm = harmonization(
-        soc, lens, text_len=2 * ref_len_forward, max_socs=cfg.max_socs_harm,
+        soc, lens, text_len=text_len, max_socs=cfg.max_socs_harm,
         min_socs=cfg.min_socs, seeds_per_soc=cfg.seeds_per_soc,
         do_heuristics=cfg.do_heuristics, switch_qlen=cfg.switch_qlen,
         score_tolerance=cfg.score_tolerance, harm_score_min=cfg.harm_score_min,
@@ -211,13 +209,85 @@ def device_stage_mm(cfg: DeviceStageConfig, mmi, contig_starts: torch.Tensor,
     return harm, soc, data, meta
 
 
+def device_stage_mm(cfg: DeviceStageConfig, mmi, contig_starts: torch.Tensor,
+                    ref_len_forward: int, seqs: torch.Tensor, lens: torch.Tensor):
+    """Minimizer device stage: sketch + CHD lookup, seed filters, SoC,
+    harmonization, set packing. Returns (harm, soc, data, meta)."""
+    seeds = minimizer_seeding(
+        mmi, seqs, lens, contig_starts, ref_len_forward, k=cfg.mm_k, w=cfg.mm_w,
+        max_occ=cfg.max_ambiguity, max_seeds=cfg.max_seeds, rectangular=cfg.rectangular,
+    )
+    seeds = min_length(seed_lump(seeds), cfg.min_seed_len)
+    return _stage_tail(cfg, seeds, lens, contig_starts, 2 * ref_len_forward)
+
+
+def device_stage(cfg: DeviceStageConfig, fmd: FMDDev, contig_starts: torch.Tensor,
+                 seqs: torch.Tensor, lens: torch.Tensor):
+    """FMD device stage: maxSpan or SMEM seeding, seed extraction (no
+    lumping), SoC, harmonization, set packing. Returns (harm, soc, data,
+    meta)."""
+    seed_fn = smem_seeding if cfg.seeding_technique == "SMEMs" else max_spanning_seeding
+    segs = seed_fn(fmd, seqs, lens, max_segs=cfg.max_segs, min_ambiguity=cfg.min_ambiguity,
+                   max_ambiguity=cfg.max_ambiguity)
+    seeds = extract_seeds(
+        fmd, segs, lens, contig_starts, max_seeds=cfg.max_seeds,
+        max_ambiguity=cfg.max_ambiguity, min_seed_len=cfg.min_seed_len,
+        skip_ambiguous=cfg.skip_ambiguous, rectangular=cfg.rectangular,
+    )
+    return _stage_tail(cfg, seeds, lens, contig_starts, fmd.n)
+
+
+def device_stage_from_seeds(cfg: DeviceStageConfig, contig_starts: torch.Tensor,
+                            ref_len_forward: int, seeds: SeedBatch, lens: torch.Tensor):
+    """SoC, harmonization and set packing of a SeedBatch built elsewhere
+    (host MEM seeding); the delta values are recomputed here."""
+    delta = compute_delta(seeds.q_start, seeds.length, seeds.ref_start, seeds.on_forward,
+                          lens[:, None], contig_starts, ref_len_forward, cfg.rectangular)
+    seeds = seeds._replace(delta=torch.where(seeds.valid, delta, INT_MAX))
+    return _stage_tail(cfg, seeds, lens, contig_starts, 2 * ref_len_forward)
+
+
+def mem_seed_batch(fmd: FMDIndex, seqs: np.ndarray, lens: np.ndarray,
+                   cfg: DeviceStageConfig, device) -> SeedBatch:
+    """Host MEM seeding (ma_tpu.ops.mem_seeding, shared with ma_tpu) of a
+    [B, L] batch -> SeedBatch on `device` (at most cfg.max_seeds seeds per
+    read; the rest flag the read as overflowed)."""
+    from ma_tpu.ops.mem_seeding import materialize_mem_seeds, mem_seeding
+
+    B, S = seqs.shape[0], cfg.max_seeds
+    cols = np.zeros((5, B, S), np.int64)  # q_start, length, ref_start, on_forward, ambiguity
+    valid = np.zeros((B, S), bool)
+    n_seeds = np.zeros(B, np.int32)
+    overflow = np.zeros(B, bool)
+    for b in range(B):
+        segs = mem_seeding(fmd, seqs[b, : lens[b]], min_seed_size=cfg.min_seed_len - 1,
+                           min_ambiguity=cfg.min_ambiguity, max_ambiguity=cfg.max_ambiguity)
+        tuples = materialize_mem_seeds(fmd, segs, cfg.max_ambiguity)
+        if len(tuples) > S:
+            overflow[b] = True
+            tuples = tuples[:S]
+        if tuples:
+            cols[:, b, : len(tuples)] = np.asarray(tuples, np.int64).T
+        valid[b, : len(tuples)] = True
+        n_seeds[b] = len(tuples)
+    t = lambda a, dt=torch.int32: torch.as_tensor(a, device=device).to(dt)  # noqa: E731
+    z = torch.zeros((B, S), dtype=torch.int32, device=device)
+    return SeedBatch(
+        q_start=t(cols[0]), length=t(cols[1]), ref_start=t(cols[2]),
+        on_forward=t(cols[3], torch.bool), ambiguity=t(cols[4]), delta=z, soc_nt=z,
+        valid=t(valid, torch.bool), n_seeds=t(n_seeds), overflow=t(overflow, torch.bool),
+    )
+
+
 class Aligner:
-    """Single-end minimizer aligner over a Pack, on an explicit device."""
+    """Single-end aligner over a Pack, on an explicit device. `fmd` is the
+    host FMD index of the pack for the FMD techniques (maxSpan, SMEMs,
+    MEMs); it is built on first use when not given."""
 
     MAX_P_FUSED = 4096  # DP problems per fused-kernel launch
 
     def __init__(self, pack: Pack, params: ParameterSetManager | ParameterSet | None = None,
-                 *, device):
+                 *, device, fmd: FMDIndex | None = None):
         if params is None:
             params = ParameterSetManager()
         self.pset: ParameterSet = (
@@ -230,6 +300,8 @@ class Aligner:
         )
         self.nw_cfg = NWConfig(self.pset)
         self._mmi_dev = None
+        self.fmd_host = fmd
+        self._fmd_dev = None
         self.profiler: AnalyzeRuntimes | None = None
         codes = np.asarray(pack.codes, np.uint8)
         # folded genome codes (forward || reverse complement): the DP windows
@@ -246,13 +318,16 @@ class Aligner:
         self.n_inversion_windows = 0
         self.n_inversions = 0
 
+    TECHNIQUES = ("minimizers", "maxSpan", "SMEMs", "MEMs")
+
     def _check_supported(self) -> None:
-        """The ported slice: single-end minimizer seeding, no SDUST, no
-        NGMLR tags."""
+        """The ported slice: single-end reads, every seeding technique, no
+        SDUST masking of minimizers, no NGMLR tags."""
         g = self.pset.get
-        if str(g("Seeding Technique")) != "minimizers":
-            raise NotImplementedError(f"Seeding Technique = {g('Seeding Technique')}")
-        if int(g("Minimizers - SDUST Threshold")) > 0:
+        technique = str(g("Seeding Technique"))
+        if technique not in self.TECHNIQUES:
+            raise NotImplementedError(f"Seeding Technique = {technique}")
+        if technique == "minimizers" and int(g("Minimizers - SDUST Threshold")) > 0:
             raise NotImplementedError("Minimizers - SDUST Threshold")
         if bool(g("Emulate NGMLR's tag output")):
             raise NotImplementedError("Emulate NGMLR's tag output")
@@ -266,6 +341,18 @@ class Aligner:
             self._mmi_dev = mmi.to_device(self.device)
         return self._mmi_dev
 
+    def fmd(self) -> FMDIndex:
+        """The host FMD index, built on first use."""
+        if self.fmd_host is None:
+            self.fmd_host = FMDIndex.build(self.pack)
+        return self.fmd_host
+
+    def fmd_dev(self) -> FMDDev:
+        """The FMD index on the device, uploaded on first use."""
+        if self._fmd_dev is None:
+            self._fmd_dev = FMDDev.from_host(self.fmd(), self.device)
+        return self._fmd_dev
+
     # ----------------------------------------------------------------- device
     def run_device_stage(self, seqs: np.ndarray, lens: np.ndarray):
         """The device stage on a [B, L] batch of codes. Returns (harm, soc,
@@ -274,10 +361,16 @@ class Aligner:
         cfg = DeviceStageConfig.from_params(self.pset, seqs.shape[1], cap_boost=self.cap_boost)
         seqs_d = torch.as_tensor(seqs, device=self.device)
         lens_d = torch.as_tensor(np.asarray(lens, np.int32), device=self.device)
-        harm, soc, data, meta = device_stage_mm(
-            cfg, self.mmi_dev(cfg), self.contig_starts,
-            self.pack.unpacked_size_forward_strand, seqs_d, lens_d,
-        )
+        ref_len = self.pack.unpacked_size_forward_strand
+        if cfg.seeding_technique == "minimizers":
+            out = device_stage_mm(cfg, self.mmi_dev(cfg), self.contig_starts, ref_len,
+                                  seqs_d, lens_d)
+        elif cfg.seeding_technique == "MEMs":
+            seeds = mem_seed_batch(self.fmd(), seqs, lens, cfg, self.device)
+            out = device_stage_from_seeds(cfg, self.contig_starts, ref_len, seeds, lens_d)
+        else:
+            out = device_stage(cfg, self.fmd_dev(), self.contig_starts, seqs_d, lens_d)
+        harm, soc, data, meta = out
         return harm, soc, data, meta, seqs_d
 
     # ------------------------------------------------------------------- host

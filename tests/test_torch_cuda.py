@@ -87,6 +87,112 @@ def test_dp_fused_kernel(cuda, is_global):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+def _dp_problems(rng, P, M, N, is_global, dev):
+    """Targets are mutated copies of the queries with random flanks; every
+    fifth extension target turns random after a few bases (z-drop), every
+    third extension problem traces back from its last row."""
+    q = rng.integers(0, 4, (P, M))
+    t = np.concatenate([q, rng.integers(0, 4, (P, max(N - M, 0)))], 1)[:, :N]
+    t[rng.random(t.shape) < 0.05] = rng.integers(0, 4)
+    t[:, 20:23] = 4
+    if not is_global:
+        t[::5, 8:] = rng.integers(0, 4, t[::5, 8:].shape)
+    qlen = rng.integers(1, M + 1, P)
+    tlen = rng.integers(1, N + 1, P)
+    band = rng.integers(10, max(11, N // 2), P)
+    tb = (np.arange(P) % 3 == 0) & (not is_global)
+    d = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int32, device=dev)
+    return (d(q), d(t), d(qlen), d(tlen), d(band)), d(tb)
+
+
+@pytest.mark.parametrize("M,N", [(32, 128), (64, 768), (32, 1024), (40, 200), (64, 4096)])
+@pytest.mark.parametrize("is_global", [True, False])
+def test_dp_fused_v2_kernel(cuda, M, N, is_global):
+    """C' against the plain version and, where C takes the width, against C:
+    one-warp teams (N = 128), multi-warp teams with named barriers, a width
+    that is not a multiple of 16 (N = 200), and 16 columns per thread."""
+    from ma_tpu_torch import kernels
+    from ma_tpu_torch.ops.dp import DPParams
+    from ma_tpu_torch.ops.dp_fused import (
+        banded_align_runs, banded_align_runs_plain, banded_align_runs_v2,
+    )
+
+    rng = np.random.default_rng(M * N + int(is_global))
+    args, tb = _dp_problems(rng, 70, M, N, is_global, cuda)
+    kw = dict(M=M, N=N, params=DPParams(), zdrop=-1 if is_global else 30,
+              is_global=is_global, tb_last=tb, R=8)
+    before = kernels.DP_FUSED_V2.launches
+    got = banded_align_runs_v2(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernels.DP_FUSED_V2.launches == before + 1
+    want = banded_align_runs_plain(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    if N <= 1024:
+        c = banded_align_runs(*args, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, c))
+
+
+@pytest.mark.parametrize("N", [128, 768, 2048, 4096])
+def test_dp_fused_v2_direction_bytes(cuda, N):
+    """Every direction byte C' streams out (rows < qlen, all N columns)
+    against the plain row DP's: 4, 8 and 16 columns per thread."""
+    from ma_tpu_torch import kernels
+    from ma_tpu_torch.ops.dp import DPParams
+    from ma_tpu_torch.ops.dp_rows import banded_align_rows
+
+    rng = np.random.default_rng(N)
+    P, M = 12, 48
+    (q, t, qlen, tlen, band), tb = _dp_problems(rng, P, M, N, False, cuda)
+    pr = DPParams()
+    meta_in = torch.stack([qlen, tlen, band, tb], 1).contiguous()
+    runs = torch.empty((P, 8), dtype=torch.int32, device=cuda)
+    meta = torch.empty((8, P), dtype=torch.int32, device=cuda)
+    dirs = torch.empty((P, M, N), dtype=torch.uint8, device=cuda)
+    kernels.DP_FUSED_V2.launch(q, t, meta_in, runs, meta, dirs, P, M, N, N, 8, *pr, 30, 0)
+    want = banded_align_rows(q, t, qlen, tlen, band, pr, 30, False).dirs
+    torch.cuda.synchronize()
+    rows = torch.arange(M, device=cuda)[None, :, None] < qlen[:, None, None]
+    assert torch.equal(torch.where(rows, dirs, 0), torch.where(rows, want, 0))
+
+
+def test_dp_v2_selection_launches_c_prime(cuda, monkeypatch):
+    from ma_tpu_torch import kernels
+    from ma_tpu_torch.ops.dp_fused import banded_align_runs
+
+    args, tb = _dp_problems(np.random.default_rng(3), 16, 32, 128, False, cuda)
+    counts = lambda: (kernels.DP_FUSED.launches, kernels.DP_FUSED_V2.launches)  # noqa: E731
+    c0, v0 = counts()
+    banded_align_runs(*args, M=32, N=128, zdrop=30, is_global=False, tb_last=tb)
+    monkeypatch.setenv("MA_TPU_DP_V2", "1")
+    banded_align_runs(*args, M=32, N=128, zdrop=30, is_global=False, tb_last=tb)
+    torch.cuda.synchronize()
+    assert counts() == (c0 + 1, v0 + 1)
+
+
+def test_fmd_ops_on_cuda(cuda):
+    """occ4 and extend_backward on CUDA tensors against the CPU."""
+    from ma_tpu.containers.pack import Pack
+    from ma_tpu.index.fmd_index import FMDIndex
+    from ma_tpu_torch.ops import occ
+
+    rng = np.random.default_rng(8)
+    pack = Pack.empty()
+    pack.append("g", rng.integers(0, 4, 5000).astype(np.uint8))
+    fmd = FMDIndex.build(pack)
+    cpu, dev = occ.FMDDev.from_host(fmd, "cpu"), occ.FMDDev.from_host(fmd, cuda)
+    k = torch.arange(-1, fmd.n + 1, dtype=torch.int32)
+    assert torch.equal(occ.occ4(dev, k.to(cuda)).cpu(), occ.occ4(cpu, k))
+    n = 5000
+    start = torch.as_tensor(rng.integers(0, fmd.n - 50, n), dtype=torch.int32)
+    ik = occ.SAI(start, torch.as_tensor(rng.integers(0, fmd.n, n), dtype=torch.int32),
+                 torch.as_tensor(rng.integers(0, 50, n), dtype=torch.int32))
+    c = torch.as_tensor(rng.integers(0, 5, n), dtype=torch.int32)
+    want = occ.extend_backward(cpu, ik, c)
+    got = occ.extend_backward(dev, occ.SAI(*(a.to(cuda) for a in ik)), c.to(cuda))
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    assert torch.equal(occ.sa_lookup(dev, k[1:].to(cuda)).cpu(), occ.sa_lookup(cpu, k[1:]))
+
+
 @pytest.mark.parametrize("is_global,zdrop,M,N,state", [
     (True, -1, 64, 128, "smem"), (False, 30, 64, 128, "smem"),
     (False, 200, 2048, 1024, "smem"), (True, -1, 96, 200, "scratch"),

@@ -232,3 +232,84 @@ def test_run_overflow_redo_matches_ma_tpu(is_global, monkeypatch):
     nw._redo_batched(range(len(over)))
     assert [p.cigar for p in nw._problems] == want
     assert all(p.max_i == 0 for p in nw._problems)
+
+
+# ---- kernel C' (ma_tpu's _kernel_v2, under MA_TPU_DP_V2=1)
+@pytest.fixture
+def v2_traces(monkeypatch):
+    """MA_TPU_DP_V2=1 on both sides, with a count of ma_tpu's _kernel_v2
+    traces; jax's caches are cleared around it (ma_tpu reads the variable
+    while tracing, and the jitted entry keys only on its static args)."""
+    from ma_tpu.ops import dp_fused as JF
+
+    calls = []
+    orig = JF._kernel_v2
+
+    def counted(*args, **kw):
+        calls.append(kw["N"])
+        return orig(*args, **kw)
+
+    monkeypatch.setattr(JF, "_kernel_v2", counted)
+    monkeypatch.setenv("MA_TPU_DP_V2", "1")
+    jax.clear_caches()
+    yield calls
+    jax.clear_caches()
+
+
+@pytest.mark.parametrize("M,N,is_global,zdrop,P", [
+    (32, 128, True, -1, 40), (32, 128, False, 10, 40), (64, 768, False, 200, 24),
+    (32, 1024, False, 10, 16), (32, 2048, False, 10, 8),
+])
+def test_v2_matches_kernel_v2(v2_traces, M, N, is_global, zdrop, P):
+    """The port's banded_align_runs under MA_TPU_DP_V2=1 (C's plain
+    version: the contract is the same) against _kernel_v2 in interpret
+    mode: runs and all 8 meta rows, lastrow_arg included. N = 1024 and 2048
+    run 4 and 8 static tiles of 256; every fourth extension problem traces
+    back from its last row."""
+    from ma_tpu.ops.dp_fused import _pick_tj_v2
+
+    problems = _problems(M + N, P, M, N, is_global)
+    meta = _compare_on(problems, M, N, is_global, zdrop, TD.run_capacity(M))
+    assert v2_traces == [N]
+    assert N // _pick_tj_v2(N) == {128: 1, 768: 3, 1024: 4, 2048: 8}[N]
+    q, t, qlen, tlen, band, tb_last = (torch.as_tensor(a) for a in problems)
+    _, tm = banded_align_runs(q, t, qlen, tlen, band, M=M, N=N, zdrop=zdrop,
+                              is_global=is_global, tb_last=tb_last, R=TD.run_capacity(M))
+    assert np.array_equal(meta[7], tm.numpy()[7])  # _kernel_v2 writes 0 where C leaves a lane
+
+
+def test_v2_zdrop_empties_the_last_row(v2_traces):
+    """Z-drop ends most extensions before their last row: lastrow_max is
+    NEG_INF there, and the last-row tracebacks of those problems are empty."""
+    P, M, N = 48, 32, 128
+    q, t, qlen, tlen, band, _ = _problems(77, P, M, N, False)
+    t[:, 4:] = np.random.default_rng(77).integers(0, 4, (P, N - 4))
+    tb_last = (np.arange(P) % 2).astype(np.int32)
+    meta = _compare_on((q, t, qlen, tlen, band, tb_last), M, N, False, 5, 32)
+    empty = meta[6] == NEG
+    assert empty.sum() >= P // 3 and meta[4][empty].all()
+    assert (meta[0][empty & (tb_last == 1)] == 0).all()
+    assert v2_traces == [N]
+
+
+def test_v2_selection_matches_ma_tpu(monkeypatch):
+    """use_v2 is ma_tpu's condition without its PB2 >= 32 term, which holds
+    for every fused bucket up to (256, 4096) (PB2 = 64 there) and for any
+    shape, as _pick_pb_v2 never goes below 32."""
+    from ma_tpu.ops import dp_fused as JF
+    from ma_tpu_torch.ops import dp_fused as TF
+
+    for M in (32, 64, 256):
+        for N in (128, 768, 4096):
+            for sb in (2, 4):
+                assert JF._pick_pb_v2(M, N, sb) >= 32
+    assert JF._pick_pb_v2(256, 4096) == 64
+    assert JF._pick_pb_v2(16384, 65536) == 32
+    for flag in ("0", "1"):
+        monkeypatch.setenv("MA_TPU_DP_V2", flag)
+        for N in list(range(1, 1100)) + [1152, 1536, 2048, 2304, 3072, 3968, 4096, 16384]:
+            tj = JF._pick_tj_v2(N)
+            assert TF._pick_tj_v2(N) == tj
+            want = flag == "1" and N % tj == 0 and N // tj <= 8 and JF._pick_pb_v2(256, N) >= 32
+            assert TF.use_v2(N) == want, N
+    assert all(TF.use_v2(N) for N in range(1, 20_000))  # the tile terms always hold

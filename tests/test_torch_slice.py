@@ -116,8 +116,7 @@ def test_port_rejects_options_outside_the_slice():
     from ma_tpu_torch.pipeline.aligner import Aligner
 
     pack, reads = _fixture()
-    for name, value in (("Seeding Technique", "maxSpan"),
-                        ("Minimizers - SDUST Threshold", 20), ("Use Paired Reads", True),
+    for name, value in (("Minimizers - SDUST Threshold", 20), ("Use Paired Reads", True),
                         ("Emulate NGMLR's tag output", True)):
         al = Aligner(pack, device="cpu")
         al.pset.set("Seeding Technique", "minimizers")

@@ -80,3 +80,39 @@ def test_sam_identical_to_ma_tpu(port, path, monkeypatch):
     al.align_to_sam(iter(reads), out, batch_size=32)
     assert al.n_rescued_reads == port[0].n_rescued_reads
     assert port[1] == out.getvalue()
+
+
+@pytest.mark.parametrize("preset", ["Default", "Illumina"])
+def test_fmd_rescue_sam_identical_to_ma_tpu(preset, monkeypatch):
+    """The same fixture through FMD seeding (maxSpan, SMEMs): reads that
+    overflow re-align through the cap_boost'ed FMD device stage, and the SAM
+    equals ma_tpu's under MA_TPU_DP=fused MA_TPU_FINISH=native."""
+    jax = pytest.importorskip("jax")
+    from ma_tpu.config.parameters import ParameterSetManager
+    from ma_tpu.index.fmd_index import FMDIndex
+    from ma_tpu.pipeline.aligner import Aligner as JAligner
+    from ma_tpu_torch.pipeline.aligner import Aligner
+
+    def params():
+        mgr = ParameterSetManager()
+        mgr.set_selected(preset)
+        return mgr
+
+    pack, reads = _fixture()
+    fmd = FMDIndex.build(pack)
+    al = Aligner(pack, params(), device="cpu", fmd=fmd)
+    port = io.StringIO()
+    al.align_to_sam(iter(reads), port, batch_size=32, cmd="ma_tpu")
+    assert al.n_overflow_reads >= 1 and al.n_rescued_reads == al.n_overflow_reads
+
+    monkeypatch.setenv("MA_TPU_DP", "fused")
+    monkeypatch.setenv("MA_TPU_FINISH", "native")
+    jax.clear_caches()
+    try:
+        jal = JAligner(pack, fmd, params())
+        want = io.StringIO()
+        jal.align_to_sam(iter(reads), want, batch_size=32)
+    finally:
+        jax.clear_caches()
+    assert jal.n_rescued_reads == al.n_rescued_reads
+    assert port.getvalue() == want.getvalue()
