@@ -11,9 +11,13 @@ Phases (any failure raises and exits non-zero before the last line):
      ma_tpu_torch/_build/;
   3. kernels A, B, C, C': each against its plain PyTorch version on the
      same CUDA inputs at main-path shapes (exact equality), with both times
-     (CUDA events); C' (the DP kernel MA_TPU_DP_V2=1 selects) also against C
-     at the five fused buckets, both modes, P = 4096, and against the plain
-     version alone at (256, 4096) extension, which C cannot take;
+     (CUDA events) and the bound (below); B sorts and sweeps unsorted dense
+     rows at R = 65,536, M = 64 and R = 512, M = 2048, and the short-read
+     path's own first sweep of a batch, its plain version being the
+     stable sort plus the plain sweep; C' (the DP kernel MA_TPU_DP_V2=1
+     selects) also against C at the five fused buckets, both modes, P =
+     4096, and against the plain version alone at (256, 4096) extension,
+     which C cannot take;
   4. wavefront kernels: kernel D against its plain version at an extension
      bucket (P = 256, M = 1024, N = 4096, band 512, z-drop 200) and a global
      inversion-like bucket (P = 128, M = N = 512, band 512), exact on every
@@ -25,7 +29,8 @@ Phases (any failure raises and exits non-zero before the last line):
      4,641,652 bp genome, 16,384 x 150 bp reads at 1% substitutions, half
      reverse complemented, batch 4096) through
      Aligner(device="cuda").align_to_sam: reads/s (median of 3 passes after a
-     warm-up), the launches of kernels A, B, C in those passes, and the share
+     warm-up), the launches of kernels A, B, C in those passes (and C's
+     launches and problems per (M, N, mode) bucket), and the share
      of reads placed at their simulated position and strand (must be
      >= 99%); then the first 512 reads through the same port on
      device="cpu" must give byte-identical SAM;
@@ -45,19 +50,34 @@ Phases (any failure raises and exits non-zero before the last line):
      records within 200 bp of the simulated start, must be >= 98%),
      inversion windows and records, host-clock stages, and each kernel's
      launches in those passes (all five must launch); then the first 4 long
-     reads on device="cpu" must give byte-identical SAM.
+     reads on device="cpu" must give byte-identical SAM;
+  8. long-read overflow rescue: 5 kb and 10 kb reads across a tandem repeat
+     overflow their SoC windows; the rescue's stage sweeps rows of 4,096 and
+     8,192 seeds through kernel B, held against its plain version there, and
+     each read's primary record must overlap the interval it came from.
+
+The bound of a kernel (`bound_ms`) is the larger of the bytes it must move
+(each input read once, each output written once) over the card's memory rate
+(3.35 TB/s, the H100 SXM's published HBM3 rate) and its int32 operations
+over the int32 peak, 64 lanes per SM x the SMs x the card's maximum SM
+clock (nvidia-smi clocks.max.sm); `bound_by` names the larger. The DP
+kernels' operations are DP_OPS_PER_CELL per in-band cell of this run's
+problems. No single PyTorch call computes any of these kernels' functions,
+so `library_ms` is null.
 
 The line before the last is the kernels' JSON record (each kernel's
 launches summed over the counted main-path passes of phases 5-7, each read
 with the counts set to 0 just before it); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-No JAX is imported.
+Neither JAX nor any module of the JAX package ma_tpu is imported (checked at
+the end).
 """
 from __future__ import annotations
 
 import argparse
 import io
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -75,6 +95,18 @@ LONG_READS, LONG_LEN, LONG_GENOME_BP, LONG_BATCH = 256, 20_000, 10_000_000, 8192
 INV_LEN, INV_EVERY = 200, 4
 LONG_PLACE_TOL = 200
 LONG_CHECK_READS = 4
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
+INT32_LANES_PER_SM = 64
+# int32 operations that one in-band cell of ma_tpu_torch/ops/dp_rows.py's
+# recurrence needs, one per add, max, compare, select or bit op, with row and
+# column constants (gap costs, the N flags of q[i] and t[j]) hoisted and no
+# band masks (only in-band cells are counted): F1 and F2 4 each (two
+# subtractions, max, the continuation compare); E1 and E2 4 each, the same
+# over the left neighbour; score 4 (or of the N flags, equality, two
+# selects); diagonal + score 1; H~ 2 (two max); source select 12 (four times
+# compare, select, max); direction byte 8 (four selects, four ors); row
+# maximum 3 (compare, two selects)
+DP_OPS_PER_CELL = 46
 
 
 def card_line() -> str:
@@ -85,11 +117,50 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+def card_clock_mhz() -> float:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return float(res.stdout.strip().splitlines()[0])
+
+
+class Roof:
+    """The card's two rates: HBM bytes/s and int32 operations/s."""
+
+    def __init__(self):
+        import torch
+
+        self.sms = torch.cuda.get_device_properties(0).multi_processor_count
+        self.clock_mhz = card_clock_mhz()
+        self.int32_ops_per_s = self.sms * INT32_LANES_PER_SM * self.clock_mhz * 1e6
+
+    def bound(self, nbytes: float, ops: float) -> dict:
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        o_ms = ops / self.int32_ops_per_s * 1e3
+        return dict(bound_ms=max(b_ms, o_ms), bound_by="bytes" if b_ms >= o_ms else "operations",
+                    library_ms=None)
+
+
+def inband_cells(qlen, tlen, band, M: int, N: int) -> int:
+    """Cells (i, j) with i < min(m, M), j < min(n, N), |i - j| <= band."""
+    m = np.minimum(np.asarray(qlen, np.int64), M)[:, None]
+    n = np.minimum(np.asarray(tlen, np.int64), N)[:, None]
+    w = np.asarray(band, np.int64)[:, None]
+    i = np.arange(M)[None, :]
+    lo, hi = np.maximum(0, i - w), np.minimum(n - 1, i + w)
+    return int(np.where(i < m, np.clip(hi - lo + 1, 0, None), 0).sum())
+
+
+def nbytes(*ts) -> int:
+    return sum(x.numel() * x.element_size() for x in ts)
+
+
 def simulate(genome_len: int, n_reads: int, read_len: int, seed: int = 1234):
     """The bench.py workload: random genome, reads at 1% substitutions,
     odd reads reverse complemented. Returns (pack, reads, starts)."""
-    from ma_tpu.containers.nucseq import NucSeq, decode_seq, revcomp_codes
-    from ma_tpu.containers.pack import Pack
+    from ma_tpu_torch.containers.nucseq import NucSeq, decode_seq, revcomp_codes
+    from ma_tpu_torch.containers.pack import Pack
 
     rng = np.random.default_rng(seed)
     genome = rng.integers(0, 4, size=genome_len).astype(np.uint8)
@@ -139,7 +210,7 @@ def reset_launches() -> None:
     from ma_tpu_torch import kernels
 
     for k in kernels.KERNELS:
-        k.launches = 0
+        k.reset()
 
 
 def read_launches(ks) -> dict:
@@ -173,19 +244,39 @@ def soc_inputs(aligner, reads, dev):
 
 
 def linesweep_inputs(rng, R: int, M: int, dev):
-    """Kernel B's operands: R rows of M shadow elements in processing order
-    (start asc, end desc), float32 distances with ties, ~10% invalid."""
+    """Kernel B's operands: R rows of M shadow elements in no order (start,
+    end with ties), float32 distances with ties, ~10% invalid."""
     import torch
 
     starts = rng.integers(0, 150, (R, M))
     ends = starts + rng.integers(15, 60, (R, M))
-    order = np.lexsort((-ends, starts), axis=-1)
     dist = (rng.integers(0, 16, (R, M)) * 0.25 + (rng.random((R, M)) < 0.3)
             * rng.random((R, M))).astype(np.float32)
-    valid = (rng.random((R, M)) > 0.1).astype(np.int32)
+    valid = rng.random((R, M)) > 0.1
     t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=dev)
-    return (t(np.take_along_axis(ends, order, 1), torch.int32), t(dist, torch.float32),
-            t(valid, torch.int32), t(order, torch.int32))
+    return (t(starts, torch.int32), t(ends, torch.int32), t(dist, torch.float32),
+            t(valid, torch.bool))
+
+
+def linesweep_main_inputs(aligner, reads):
+    """Kernel B's operands as the main path gives them: the first sweep of a
+    batch of `reads` through the aligner (R = reads x SoCs x strands rows of
+    M = 64 seeds, mostly invalid slots)."""
+    from ma_tpu_torch.ops import harmonize
+
+    seen, orig = [], harmonize.linesweep
+
+    def spy(*args):
+        if not seen:
+            seen.append(tuple(a.clone() for a in args))
+        return orig(*args)
+
+    harmonize.linesweep = spy
+    try:
+        aligner.align_to_sam(iter(reads), io.StringIO(), batch_size=len(reads))
+    finally:
+        harmonize.linesweep = orig
+    return seen[0]
 
 
 def dp_inputs(rng, P: int, M: int, N: int, is_global: bool, dev):
@@ -219,7 +310,7 @@ def dp_inputs(rng, P: int, M: int, N: int, is_global: bool, dev):
     return tt(q), tt(t), tt(qlen), tt(tlen), tt(band), tt(tb_last)
 
 
-def kernel_phase(aligner, reads, dev, records):
+def kernel_phase(aligner, reads, dev, records, roof):
     """Kernels A, B, C and C' against their plain versions (C' also against
     C). Returns kernel C's run-overflow problems as host arrays (q, t, qlen,
     tlen, band, is_global) for the redo check of wavefront_phase."""
@@ -229,7 +320,7 @@ def kernel_phase(aligner, reads, dev, records):
     from ma_tpu_torch.ops.dp_fused import (
         banded_align_runs, banded_align_runs_plain, banded_align_runs_v2,
     )
-    from ma_tpu_torch.ops.harmonize_cuda import linesweep_sorted, linesweep_sorted_plain
+    from ma_tpu_torch.ops.harmonize_cuda import linesweep, linesweep_plain
     from ma_tpu_torch.ops.soc_cuda import soc_sweep, soc_sweep_plain
 
     rng = np.random.default_rng(7)
@@ -240,30 +331,43 @@ def kernel_phase(aligner, reads, dev, records):
     err = max_abs_err(got, ref)
     ms = time_ms(lambda: soc_sweep(cand, n, min_score, K), 10)
     pms = time_ms(lambda: soc_sweep_plain(cand, n, min_score, K), 1)
+    bd = roof.bound(nbytes(cand, n, min_score) + nbytes(*got), 0)
     print(f"kernel soc_sweep: cand {tuple(cand.shape)} K={K} max_abs_err={err} "
-          f"kernel {ms:.3f} ms plain {pms:.3f} ms", flush=True)
+          f"kernel {ms:.3f} ms plain {pms:.3f} ms bound {bd['bound_ms']:.4f} ms "
+          f"({bd['bound_by']})", flush=True)
     if err:
         raise AssertionError(f"soc_sweep differs from its plain version: {err}")
-    records["soc_sweep"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+    records["soc_sweep"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, **bd)
 
-    # ---- B: line sweep at R = 4096 reads x 8 SoCs x 2 strands, M = 64
-    total_err, ms_sum, pms_sum = 0, 0.0, 0.0
-    for R, M in ((65536, 64), (512, 2048)):
-        ops = linesweep_inputs(rng, R, M, dev)
-        err = max_abs_err([linesweep_sorted(*ops)], [linesweep_sorted_plain(*ops)])
-        ms = time_ms(lambda: linesweep_sorted(*ops), 10)
-        pms = time_ms(lambda: linesweep_sorted_plain(*ops), 1)
-        print(f"kernel linesweep: R={R} M={M} max_abs_err={err} kernel {ms:.3f} ms "
-              f"plain {pms:.3f} ms", flush=True)
+    # ---- B: sort + line sweep on dense rows (90% valid) at the short-read
+    # path's shape, R = 4096 reads x 8 SoCs x 2 strands, M = 64 (the record,
+    # as in earlier runs), and at R = 512, M = 2048 (long reads); then on the
+    # short-read path's own first sweep of a batch, whose slots are mostly
+    # invalid: there the bound counts the bytes its data needs (every valid
+    # flag and output byte, start, end and dist of the valid elements only)
+    for case in ((65536, 64), (512, 2048), "main"):
+        ops = (linesweep_main_inputs(aligner, reads) if case == "main"
+               else linesweep_inputs(rng, *case, dev))
+        R, M = ops[0].shape
+        n_valid = int(ops[3].sum())
+        got = linesweep(*ops)
+        err = max_abs_err([got], [linesweep_plain(*ops)])
+        ms = time_ms(lambda: linesweep(*ops), 10)
+        pms = time_ms(lambda: linesweep_plain(*ops), 1)
+        need = (2 * R * M + 12 * n_valid if case == "main" else nbytes(*ops) + nbytes(got))
+        bd = roof.bound(need, 0)
+        print(f"kernel linesweep ({'main path' if case == 'main' else 'dense'}, "
+              f"{n_valid} valid): R={R} M={M} max_abs_err={err} kernel {ms:.4f} ms "
+              f"plain {pms:.3f} ms bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}), "
+              f"{bd['bound_ms'] / ms:.1%} of the bound", flush=True)
         if err:
             raise AssertionError(f"linesweep differs from its plain version (M={M})")
-        if M == 64:  # the main-path shape goes in the record
-            total_err, ms_sum, pms_sum = err, ms, pms
-    records["linesweep"] = dict(max_abs_err=total_err, ms=ms_sum, plain_ms=pms_sum)
+        if case == (65536, 64):
+            records["linesweep"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, **bd)
 
     # ---- C and C': fused DP at every (M, N) bucket, P = 4096, both modes
     params = DPParams()
-    total_err, ms_sum, pms_sum = 0, 0.0, 0.0
+    total_err, ms_sum, pms_sum, bound_sum = 0, 0.0, 0.0, 0.0
     v2_err, v2_ms, v2_pms = 0, 0.0, 0.0
     overflowed = []
 
@@ -290,9 +394,14 @@ def kernel_phase(aligner, reads, dev, records):
             pms = time_ms(lambda: banded_align_runs_plain(q, t, ql, tl, bd, **kw), 1)
             over = int(got[1][5].sum())
             keep_overflows(got[1], q, t, ql, tl, bd, is_global)
+            cells = inband_cells(ql.cpu().numpy(), tl.cpu().numpy(), bd.cpu().numpy(), M, N)
+            bnd = roof.bound(nbytes(q, t, ql, tl, bd, tb) + nbytes(*got),
+                             cells * DP_OPS_PER_CELL)
             print(f"kernel dp_fused: P=4096 M={M} N={N} global={is_global} "
                   f"run_overflows={over} max_abs_err={err} kernel {ms:.3f} ms "
-                  f"plain {pms:.3f} ms", flush=True)
+                  f"plain {pms:.3f} ms; {cells} in-band cells, bound "
+                  f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
+                  f"{bnd['bound_ms'] / ms:.1%} of it", flush=True)
             print(f"kernel dp_fused_v2: P=4096 M={M} N={N} global={is_global} "
                   f"max_abs_err={err2} (vs dp_fused {err_c}) kernel {ms2:.3f} ms "
                   f"dp_fused {ms:.3f} ms plain {pms:.3f} ms", flush=True)
@@ -304,13 +413,16 @@ def kernel_phase(aligner, reads, dev, records):
             total_err = max(total_err, err)
             ms_sum += ms
             pms_sum += pms
+            bound_sum += bnd["bound_ms"]
             v2_err = max(v2_err, err2)
             v2_ms += ms2
             v2_pms += pms
-    print("kernel dp_fused / dp_fused_v2: record ms / plain_ms are sums over the 10 bucket x "
-          "mode cases")
-    records["dp_fused"] = dict(max_abs_err=total_err, ms=ms_sum, plain_ms=pms_sum)
-    records["dp_fused_v2"] = dict(max_abs_err=v2_err, ms=v2_ms, plain_ms=v2_pms)
+    print(f"kernel dp_fused / dp_fused_v2: record ms / plain_ms / bound_ms are sums over the "
+          f"10 bucket x mode cases: C {ms_sum:.3f} ms, C' {v2_ms:.3f} ms, bound "
+          f"{bound_sum:.4f} ms", flush=True)
+    rec_bound = dict(bound_ms=bound_sum, bound_by="operations", library_ms=None)
+    records["dp_fused"] = dict(max_abs_err=total_err, ms=ms_sum, plain_ms=pms_sum, **rec_bound)
+    records["dp_fused_v2"] = dict(max_abs_err=v2_err, ms=v2_ms, plain_ms=v2_pms, **rec_bound)
     # C' at the widest fused bucket, (256, 4096) extension: the plain version only
     q4, t4, ql4, tl4, bd4, tb4 = dp_inputs(rng, 4096, 256, 4096, False, dev)
     kw4 = dict(M=256, N=4096, params=params, zdrop=200, is_global=False, tb_last=tb4,
@@ -333,7 +445,7 @@ def kernel_phase(aligner, reads, dev, records):
     return overflowed
 
 
-def wavefront_phase(dev, records, overflowed):
+def wavefront_phase(dev, records, overflowed, roof):
     """Kernel D and the traceback kernel against their plain versions, and
     kernel C's run-overflow problems redone through both on the card and
     on the CPU."""
@@ -349,7 +461,7 @@ def wavefront_phase(dev, records, overflowed):
 
     rng = np.random.default_rng(11)
     params = DPParams()
-    sums = {"dp_wavefront": [0, 0.0, 0.0], "dp_traceback": [0, 0.0, 0.0]}
+    sums = {"dp_wavefront": [0, 0.0, 0.0, 0.0, []], "dp_traceback": [0, 0.0, 0.0, 0.0, []]}
     for P, M, N, is_global in ((256, 1024, 4096, False), (128, 512, 512, True)):
         q, t, ql, tl, _, _ = dp_inputs(rng, P, M, N, is_global, dev)
         bd = torch.full_like(ql, 512)
@@ -358,9 +470,12 @@ def wavefront_phase(dev, records, overflowed):
         err = max_abs_err(got, banded_align_wavefront_plain(*args))
         ms = time_ms(lambda: banded_align_wavefront(*args), 5)
         pms = time_ms(lambda: banded_align_wavefront_plain(*args), 1)
+        cells = inband_cells(ql.cpu().numpy(), tl.cpu().numpy(), bd.cpu().numpy(), M, N)
+        bnd = roof.bound(nbytes(q, t, ql, tl, bd) + nbytes(*got), cells * DP_OPS_PER_CELL)
         print(f"kernel dp_wavefront: P={P} M={M} N={N} global={is_global} band=512 "
               f"zdropped={int(got.zdropped.sum())} max_abs_err={err} kernel {ms:.3f} ms "
-              f"plain {pms:.3f} ms", flush=True)
+              f"plain {pms:.3f} ms; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})",
+              flush=True)
         if err:
             raise AssertionError(f"dp_wavefront differs from its plain version at {M}x{N}")
         si, sj = (ql - 1, tl - 1) if is_global else (got.max_i, got.max_j)
@@ -368,16 +483,25 @@ def wavefront_phase(dev, records, overflowed):
         terr = max_abs_err(tb, traceback_dirs_plain(got.dirs, si, sj))
         tms = time_ms(lambda: traceback_dirs(got.dirs, si, sj), 5)
         tpms = time_ms(lambda: traceback_dirs_plain(got.dirs, si, sj), 1)
+        # the walk reads one direction byte per step of each path
+        tbnd = roof.bound(int(tb[1].clamp(min=0).sum()) + nbytes(si, sj) + nbytes(*tb), 0)
         print(f"kernel dp_traceback: P={P} M={M} N={N} longest path {int(tb[1].max())} "
-              f"max_abs_err={terr} kernel {tms:.3f} ms plain {tpms:.3f} ms", flush=True)
+              f"max_abs_err={terr} kernel {tms:.3f} ms plain {tpms:.3f} ms; bound "
+              f"{tbnd['bound_ms']:.5f} ms ({tbnd['bound_by']})", flush=True)
         if terr:
             raise AssertionError(f"dp_traceback differs from its plain version at {M}x{N}")
-        for name, e, a, b in (("dp_wavefront", err, ms, pms), ("dp_traceback", terr, tms, tpms)):
-            sums[name] = [max(sums[name][0], e), sums[name][1] + a, sums[name][2] + b]
+        for name, e, a, b, c in (("dp_wavefront", err, ms, pms, bnd),
+                                 ("dp_traceback", terr, tms, tpms, tbnd)):
+            s = sums[name]
+            sums[name] = [max(s[0], e), s[1] + a, s[2] + b, s[3] + c["bound_ms"],
+                          s[4] + [c]]
         del got, tb
-    print("kernel dp_wavefront / dp_traceback: record ms / plain_ms are sums over the 2 cases")
-    for name, (e, a, b) in sums.items():
-        records[name] = dict(max_abs_err=e, ms=a, plain_ms=b)
+    print("kernel dp_wavefront / dp_traceback: record ms / plain_ms / bound_ms are sums over "
+          "the 2 cases, bound_by the larger case's", flush=True)
+    for name, (e, a, b, c, cases) in sums.items():
+        by = max(cases, key=lambda x: x["bound_ms"])["bound_by"]
+        records[name] = dict(max_abs_err=e, ms=a, plain_ms=b, bound_ms=c, bound_by=by,
+                             library_ms=None)
 
     # ---- run-overflow redo: kernel D + traceback on the card vs the CPU
     n_redo = 0
@@ -419,8 +543,8 @@ def simulate_long(n_reads: int = LONG_READS, read_len: int = LONG_LEN,
     (random genome; reads at 1% substitutions, 2% insertions, 2% deletions;
     odd reads reverse complemented), with INV_LEN bases in the middle of
     every INV_EVERY-th read inverted. Returns (pack, reads, starts)."""
-    from ma_tpu.containers.nucseq import NucSeq, revcomp_codes
-    from ma_tpu.containers.pack import Pack
+    from ma_tpu_torch.containers.nucseq import NucSeq, revcomp_codes
+    from ma_tpu_torch.containers.pack import Pack
 
     rng = np.random.default_rng(seed)
     genome = rng.integers(0, 4, size=genome_len).astype(np.uint8)
@@ -460,7 +584,7 @@ def simulate_long(n_reads: int = LONG_READS, read_len: int = LONG_LEN,
 
 def long_params():
     """The PacBio preset with minimizer seeding and small inversions on."""
-    from ma_tpu.config.parameters import ParameterSetManager
+    from ma_tpu_torch.config.parameters import ParameterSetManager
 
     mgr = ParameterSetManager()
     mgr.set_selected("PacBio")
@@ -491,7 +615,7 @@ def long_phase(dev, pack, reads, starts, check_reads: int = LONG_CHECK_READS) ->
     CPU port. Returns each kernel's launches in the counted passes."""
     import torch
 
-    from ma_tpu.utils.profile import AnalyzeRuntimes
+    from ma_tpu_torch.utils.profile import AnalyzeRuntimes
     from ma_tpu_torch import kernels
     from ma_tpu_torch.pipeline.aligner import Aligner
 
@@ -561,6 +685,99 @@ def long_phase(dev, pack, reads, starts, check_reads: int = LONG_CHECK_READS) ->
     return launches
 
 
+def repeat_workload(read_len: int):
+    """Two reads of read_len (one reverse complemented) across a 6 kb block
+    of 60 copies of a 100 bp unit (2% substitutions each) between random
+    30 kb flanks: their SoC windows hold more seeds than seeds_per_soc, so
+    they re-align through the overflow rescue. Returns (pack, reads,
+    starts)."""
+    from ma_tpu_torch.containers.nucseq import NucSeq, revcomp_codes
+    from ma_tpu_torch.containers.pack import Pack
+
+    rng = np.random.default_rng(99)
+    copies = np.tile(rng.integers(0, 4, 100), (60, 1))
+    mut = rng.random(copies.shape) < 0.02
+    copies[mut] = (copies[mut] + rng.integers(1, 4, int(mut.sum()))) % 4
+    genome = np.concatenate([rng.integers(0, 4, 30_000), copies.ravel(),
+                             rng.integers(0, 4, 30_000)]).astype(np.uint8)
+    pack = Pack.empty()
+    pack.append("chrT", genome)
+    starts = np.asarray([28_000, 28_500])
+    reads = [NucSeq(genome[p : p + read_len].copy(), name=f"L{k}_{p}")
+             for k, p in enumerate(starts)]
+    reads[1] = NucSeq(revcomp_codes(reads[1].codes), name=reads[1].name)
+    return pack, reads, starts
+
+
+def at_locus(sam: str, starts, read_len: int) -> int:
+    """Reads whose primary record is mapped and overlaps the reference
+    interval the read was taken from (the read's name holds its index)."""
+    n = 0
+    for line in sam.splitlines():
+        f = line.split("\t")
+        if line.startswith("@") or int(f[1]) & 0x904:
+            continue
+        span = sum(int(k) for k, op in re.findall(r"(\d+)([MDN=X])", f[5]))
+        p = int(starts[int(f[0][1:].split("_")[0])])
+        n += int(f[3]) - 1 < p + read_len and p < int(f[3]) - 1 + span
+    return n
+
+
+def rescue_phase(dev) -> None:
+    """Long reads of 5 and 10 kb across a tandem repeat on `dev`: their SoC
+    windows overflow and the rescue's boosted stage sweeps rows of 4,096 and
+    8,192 seeds through kernel B. The first such sweep of each is held
+    against the plain version, and every read's primary record must overlap
+    the interval it was taken from. (Inside the repeat the primary record
+    leaves parts of the read clipped, on the CPU port as on the card, so
+    its POS is not the read's start.)"""
+    import torch
+
+    from ma_tpu_torch.ops import harmonize
+    from ma_tpu_torch.ops.harmonize_cuda import linesweep_plain
+    from ma_tpu_torch.pipeline.aligner import Aligner
+
+    orig = harmonize.linesweep
+    for read_len, want in ((5000, 4096), (10_000, 8192)):
+        pack, reads, starts = repeat_workload(read_len)
+        widths, first = set(), []
+
+        def spy(*args):
+            out = orig(*args)
+            if args[0].shape[1] > 2048:
+                widths.add(args[0].shape[1])
+                if not first:
+                    first.append((tuple(a.clone() for a in args), out.clone()))
+            return out
+
+        al = Aligner(pack, long_params(), device=dev)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        harmonize.linesweep = spy
+        try:
+            al.align_to_sam(iter(reads), buf, batch_size=len(reads))
+            torch.cuda.synchronize()
+        finally:
+            harmonize.linesweep = orig
+        wall = time.perf_counter() - t0
+        sam = buf.getvalue()
+        ok = at_locus(sam, starts, read_len)
+        err = max_abs_err([first[0][1]], [linesweep_plain(*first[0][0])]) if first else -1
+        recs = [f[:5] + [f[5][:60]] for f in (r.split("\t") for r in sam.splitlines()
+                                             if not r.startswith("@"))]
+        print(f"rescue: {len(reads)} reads x {read_len} bp across a tandem repeat, {wall:.1f} s; "
+              f"overflow reads {al.n_overflow_reads}, rescued {al.n_rescued_reads}; rescue "
+              f"sweep widths {sorted(widths)}, max_abs_err={err}; at their locus {ok}; "
+              f"records (name, flag, contig, pos, mapq, cigar) {recs}", flush=True)
+        if not al.n_rescued_reads or al.n_rescued_reads != al.n_overflow_reads:
+            raise AssertionError("the repeat reads did not go through the overflow rescue")
+        if widths != {want} or err:
+            raise AssertionError(f"rescue sweeps {sorted(widths)} (want {want}) or linesweep "
+                                 f"differs from its plain version there ({err})")
+        if ok != len(reads):
+            raise AssertionError(f"{ok} of {len(reads)} rescued reads at their locus")
+
+
 def first_diff(a: str, b: str) -> int:
     """Index of the first line where two SAM texts differ."""
     x, y = a.splitlines(), b.splitlines()
@@ -628,9 +845,9 @@ def fmd_phase(dev, pack, reads, starts) -> dict:
 
     import torch
 
-    from ma_tpu.config.parameters import ParameterSetManager
-    from ma_tpu.index.fmd_index import FMDIndex
-    from ma_tpu.utils.profile import AnalyzeRuntimes
+    from ma_tpu_torch.config.parameters import ParameterSetManager
+    from ma_tpu_torch.index.fmd_index import FMDIndex
+    from ma_tpu_torch.utils.profile import AnalyzeRuntimes
     from ma_tpu_torch import kernels
     from ma_tpu_torch.pipeline.aligner import Aligner
 
@@ -763,7 +980,7 @@ def main() -> int:
 
     import torch
 
-    from ma_tpu.utils.profile import AnalyzeRuntimes
+    from ma_tpu_torch.utils.profile import AnalyzeRuntimes
     from ma_tpu_torch import kernels
     from ma_tpu_torch.pipeline.aligner import Aligner
 
@@ -774,6 +991,10 @@ def main() -> int:
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}", flush=True)
+    roof = Roof()
+    print(f"roof: {roof.sms} SMs x {INT32_LANES_PER_SM} int32 lanes x {roof.clock_mhz:.0f} MHz "
+          f"(clocks.max.sm) = {roof.int32_ops_per_s / 1e12:.2f} T int32 op/s; "
+          f"HBM {HBM_BYTES_PER_S / 1e12:.2f} TB/s", flush=True)
 
     t0 = time.perf_counter()
     so = kernels.build()
@@ -797,8 +1018,8 @@ def main() -> int:
     print(f"warm-up: {time.perf_counter() - t0:.1f} s", flush=True)
 
     records: dict = {}
-    overflowed = kernel_phase(aligner, reads[:BATCH], dev, records)
-    wavefront_phase(dev, records, overflowed)
+    overflowed = kernel_phase(aligner, reads[:BATCH], dev, records, roof)
+    wavefront_phase(dev, records, overflowed, roof)
 
     # ---- short reads: the native path, counted
     reset_launches()
@@ -820,6 +1041,10 @@ def main() -> int:
           f"placed {share:.4%}, overflow reads {aligner.n_overflow_reads}, "
           f"rescued {aligner.n_rescued_reads}", flush=True)
     print(f"slice launches: {json.dumps(launches)}", flush=True)
+    tally = sorted(kernels.DP_FUSED.tally.items())
+    print("slice dp_fused per (M, N, mode), per pass: " + "; ".join(
+        f"{M}x{N} {mode}: {n / PASSES:g} launches, {k / PASSES:g} problems"
+        for (M, N, mode), (n, k) in tally), flush=True)
     if min(launches[k.name] for k in (kernels.SOC_SWEEP, kernels.LINESWEEP,
                                       kernels.DP_FUSED)) == 0:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
@@ -863,8 +1088,13 @@ def main() -> int:
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     for name, v in long_phase(dev, pack_l, reads_l, starts_l).items():
         total[name] += v
+    rescue_phase(dev)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
+    reference = sorted(m for m in sys.modules if m == "ma_tpu" or m.startswith("ma_tpu."))
+    if reference:
+        raise AssertionError(f"modules of the JAX package were imported: {reference}")
+    print("isolation: no jax and no ma_tpu module loaded", flush=True)
     if min(total.values()) == 0:
         raise AssertionError(f"a kernel never launched on the main paths: {total}")
 

@@ -34,26 +34,15 @@
 //    the current one;
 //  - several problems per block: 8 one-warp teams per block at N <= 128,
 //    256 / T teams otherwise.
-// DPX intrinsics and 16-bit lanes are later work.
+// The cell step (kept without DPX here), the book, the traceback step and
+// the bulk stores are kernel C's too (csrc/dp_common.cuh).
 #include <cstdint>
 
-#include "common.cuh"
+#include "dp_common.cuh"
 
 namespace {
 
-constexpr int NEG = -(1 << 30);
-constexpr int OP_M = 0, OP_I = 1, OP_D = 2;
-constexpr int TB_H = 0, TB_E1 = 1, TB_E2 = 2, TB_F1 = 3, TB_F2 = 4;
-constexpr int CONT_E1 = 0x08, CONT_F1 = 0x10, CONT_E2 = 0x20, CONT_F2 = 0x40;
-constexpr unsigned FULL = 0xffffffffu;
-
-struct Scores {
-  int match, mismatch, go1, ge1, go2, ge2;
-};
-
-__device__ __forceinline__ int gap_cost(int k, const Scores& s) {
-  return max(-(s.go1 + k * s.ge1), -(s.go2 + k * s.ge2));
-}
+using namespace dp;
 
 // Shared memory of one team, in bytes (a multiple of 128, so every team's
 // rows stay aligned for the bulk copies): the direction-row double buffer
@@ -63,39 +52,7 @@ __host__ __device__ inline int team_smem_bytes(int ldr, int W) {
   return (2 * ldr + 32 + W * 24 + 127) / 128 * 128;
 }
 
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void team_sync(int bar_id, int nthreads) {
-  if (nthreads == 32) {
-    __syncwarp();
-  } else {
-    asm volatile("bar.sync %0, %1;" ::"r"(bar_id), "r"(nthreads) : "memory");
-  }
-}
-
-// generic-proxy writes to shared memory -> visible to the bulk copy engine
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-__device__ __forceinline__ void bulk_store(void* gdst, const void* ssrc, uint32_t bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
-               ::"l"(gdst), "r"(saddr(ssrc)), "r"(bytes) : "memory");
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-
-// all but the newest store group have finished reading shared memory
-__device__ __forceinline__ void bulk_wait_read1() {
-  asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
-}
-
-// every store group has completed (its global writes performed)
-__device__ __forceinline__ void bulk_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-  asm volatile("fence.proxy.async.global;" ::: "memory");
-}
+__device__ __forceinline__ long long max64(long long a, long long b) { return a > b ? a : b; }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(saddr(bar)) : "memory");
@@ -122,29 +79,37 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       "}" ::"r"(saddr(bar)), "r"(parity) : "memory");
 }
 
-__device__ __forceinline__ long long max64(long long a, long long b) { return a > b ? a : b; }
-
-// Run packer of the traceback: append (or merge into the last) run.
-struct Runs {
-  int* runs;
-  int R;
-  int cnt = 0;
-  int last = -1;
-  bool over = false;
-  __device__ void emit(int op, int ln) {
-    if (ln <= 0) return;
-    if (last == op && cnt > 0) {
-      runs[cnt - 1] += ln * 4;
-      return;
-    }
-    if (cnt >= R) {  // no room for a new run: flag, keep `last`
-      over = true;
-      return;
-    }
-    runs[cnt++] = ln * 4 + op;
-    last = op;
+// The traceback over direction rows in global memory ([M, ldn] of one
+// problem, every row written): each visited row is brought into one of two
+// shared-memory slots (dbuf, dbuf + ldr) by a bulk copy completing on
+// mbar[slot], the row above prefetched into the other slot meanwhile.
+__device__ inline void traceback_streamed(const unsigned char* drow_g, int ldn, unsigned char* dbuf,
+                                   int ldr, uint64_t* mbar, int si, int sj, Runs& out) {
+  int i = si, jj = sj, mode = TB_H;
+  bool done = si < 0 || sj < 0;
+  uint32_t parity[2] = {0, 0};
+  int pending = -1;  // slot of an issued, unwaited row load
+  if (!done) {
+    bulk_load(dbuf + (si & 1) * ldr, drow_g + static_cast<size_t>(si) * ldn, ldn, &mbar[si & 1]);
+    pending = si & 1;
   }
-};
+  for (int row = si; row >= 0 && !done; --row) {
+    const int sl = row & 1;
+    int next = -1;
+    if (row >= 1) {  // prefetch the row above into the other slot
+      bulk_load(dbuf + (sl ^ 1) * ldr, drow_g + static_cast<size_t>(row - 1) * ldn, ldn,
+                &mbar[sl ^ 1]);
+      next = sl ^ 1;
+    }
+    mbar_wait(&mbar[sl], parity[sl]);
+    parity[sl] ^= 1;
+    pending = next;
+    const unsigned char* drow = dbuf + sl * ldr;
+    while (!done && i == row) done = tb_step(drow[jj], i, jj, mode, out);
+  }
+  if (pending >= 0) mbar_wait(&mbar[pending], parity[pending]);  // no copy left in flight
+  tb_finish(si, i, jj, out);
+}
 
 template <int CPT>
 __global__ void __launch_bounds__(256)
@@ -201,10 +166,7 @@ __global__ void __launch_bounds__(256)
     f2[k] = NEG;
     h[k] = NEG;
   }
-  // max-cell book (team leader)
-  int gmax = is_global ? NEG : 0, gi = -1, gj = -1, gd = 1 << 30;
-  int lrmax = NEG, lrarg = -1;
-  bool dropped = false;
+  Book book(is_global);  // max-cell book (team leader)
   const int nn = min(n, N);
   team_sync(bar_id, T);  // zero-filled runs and s_scr before any later write
 
@@ -232,17 +194,10 @@ __global__ void __launch_bounds__(256)
           diag = j > 0 ? (j < N ? prev_old : NEG) : gap_cost(i, s);
         }
         prev_old = h[k];
-        const int t1 = f1[k] - s.ge1, t2 = h_up - (s.go1 + s.ge1);
-        f1[k] = max(t1, t2);
-        cf1[k] = t1 >= t2;
-        const int t3 = f2[k] - s.ge2, t4 = h_up - (s.go2 + s.ge2);
-        f2[k] = max(t3, t4);
-        cf2[k] = t3 >= t4;
         const int tc = (tcw[k / 4] >> (8 * (k % 4))) & 0xff;
-        const int sc = (qc >= 4 || tc >= 4) ? 0 : (qc == tc ? s.match : -s.mismatch);
-        const int hd = diag + sc;
         valid[k] = j < N && j < n && abs(i - j) <= w;
-        h0[k] = valid[k] ? max(hd, max(f1[k], f2[k])) : NEG;
+        int hd;
+        cell_f<false>(h_up, diag, qc, tc, valid[k], s, f1[k], f2[k], cf1[k], cf2[k], hd, h0[k]);
         h[k] = hd;  // H before the E terms; the final H replaces it in C
       }
     }
@@ -312,26 +267,11 @@ __global__ void __launch_bounds__(256)
       const int open_src = k == 0 ? open_left : h0[k - 1];
       const int v1 = k == 0 ? v01 : h0[k - 1] + s.ge1 * (j - 1);
       const int v2 = k == 0 ? v02 : h0[k - 1] + s.ge2 * (j - 1);
-      const int a1 = max(run1, v1), a2 = max(run2, v2);
-      const int e1 = a1 - s.go1 - s.ge1 * j;
-      const int e2 = a2 - s.go2 - s.ge2 * j;
-      const int e1p = j == 0 ? NEG : run1 - s.go1 - s.ge1 * (j - 1);
-      const int e2p = j == 0 ? NEG : run2 - s.go2 - s.ge2 * (j - 1);
-      const bool ce1 = e1p - s.ge1 >= open_src - (s.go1 + s.ge1);
-      const bool ce2 = e2p - s.ge2 >= open_src - (s.go2 + s.ge2);
-      run1 = a1;
-      run2 = a2;
-      const int hd = h[k];
-      int hv = hd, src = 0;
-      if (e1 > hv) { hv = e1; src = 1; }
-      if (f1[k] > hv) { hv = f1[k]; src = 2; }
-      if (e2 > hv) { hv = e2; src = 3; }
-      if (f2[k] > hv) { hv = f2[k]; src = 4; }
-      if (!valid[k]) hv = NEG;
+      uint32_t byte;
+      const int hv = cell_h<false>(j, v1, v2, open_src, h[k], f1[k], f2[k], cf1[k], cf2[k], valid[k],
+                            s, run1, run2, byte);
       h[k] = hv;
-      const int byte = src | (ce1 ? CONT_E1 : 0) | (cf1[k] ? CONT_F1 : 0) |
-                       (ce2 ? CONT_E2 : 0) | (cf2[k] ? CONT_F2 : 0);
-      dword |= static_cast<uint32_t>(byte) << (8 * (k % 4));
+      dword |= byte << (8 * (k % 4));
       if (k % 4 == 3) {
         *reinterpret_cast<uint32_t*>(dbuf + slot * ldr + c0 + k - 3) = dword;
         dword = 0;
@@ -356,29 +296,8 @@ __global__ void __launch_bounds__(256)
       if (ext_book) {
         long long best = x_key[0];
         for (int k = 1; k < W; ++k) best = max64(best, x_key[k]);
-        int rmax = static_cast<int>(best >> 16);
-        int rarg = 65535 - static_cast<int>(best & 65535);
-        if (dropped) {  // no undropped cell: the first column's key of NEG
-          rmax = NEG;
-          rarg = 0;
-        }
-        if (i == m - 1) {
-          lrmax = rmax;
-          lrarg = rarg;
-        }
-        const bool upd = ((rmax > gmax) || (rmax == gmax && gi >= 0 && i + rarg < gd)) &&
-                         !dropped && rmax > NEG;
-        if (upd) {
-          gmax = rmax;
-          gi = i;
-          gj = rarg;
-          gd = i + rarg;
-        }
-        if (zdrop >= 0) {
-          const int diff = abs((i - gi) - (rarg - gj));
-          const bool has = nn >= 1 && i - w <= nn - 1 && gi >= 0;
-          if (has && gmax - rmax > zdrop + diff * s.ge1) dropped = true;
-        }
+        book.row(i, static_cast<int>(best >> 16), 65535 - static_cast<int>(best & 65535), m, nn,
+                 w, zdrop, s.ge1);
       }
       // the slot of row i - 1 is written again at row i + 1: its copy must
       // have read it (the copy of row i may stay in flight)
@@ -391,70 +310,10 @@ __global__ void __launch_bounds__(256)
   // ---- traceback (team leader), one cell per step, as kernel C's; the
   // path's rows come back into the two shared-memory slots, one row ahead
   int si, sj;
-  if (is_global) {
-    si = m - 1;
-    sj = n - 1;
-  } else if (tb_last != 0) {  // from the last row's best cell
-    si = lrmax > NEG ? m - 1 : -1;
-    sj = lrarg;
-  } else {
-    si = gi;
-    sj = gj;
-  }
+  tb_start(is_global, tb_last, m, n, book, si, sj);
   Runs out{rp, R};
-  int i = si, jj = sj, mode = TB_H;
-  bool done = si < 0 || sj < 0;
-  const unsigned char* drow_g = dirs + static_cast<size_t>(p) * M * ldn;
-  uint32_t parity[2] = {0, 0};
-  int pending = -1;  // slot of an issued, unwaited row load
-  if (!done) {
-    bulk_load(dbuf + (si & 1) * ldr, drow_g + static_cast<size_t>(si) * ldn, ldn,
-              &mbar[si & 1]);
-    pending = si & 1;
-  }
-  for (int row = si; row >= 0 && !done; --row) {
-    const int sl = row & 1;
-    int next = -1;
-    if (row >= 1) {  // prefetch the row above into the other slot
-      bulk_load(dbuf + (sl ^ 1) * ldr, drow_g + static_cast<size_t>(row - 1) * ldn, ldn,
-                &mbar[sl ^ 1]);
-      next = sl ^ 1;
-    }
-    mbar_wait(&mbar[sl], parity[sl]);
-    parity[sl] ^= 1;
-    pending = next;
-    const unsigned char* drow = dbuf + sl * ldr;
-    while (!done && i == row) {
-      const int byte = drow[jj];
-      const int src = byte & 7;
-      int e_mode = mode;
-      if (mode == TB_H)
-        e_mode = src == 1 ? TB_E1 : src == 3 ? TB_E2 : src == 2 ? TB_F1 : src == 4 ? TB_F2 : TB_H;
-      const bool is_m = e_mode == TB_H;
-      const bool is_e = e_mode == TB_E1 || e_mode == TB_E2;
-      const int cont_bit = e_mode == TB_E1 ? CONT_E1 : e_mode == TB_E2 ? CONT_E2
-                           : e_mode == TB_F1 ? CONT_F1 : CONT_F2;
-      const bool cont = !is_m && (byte & cont_bit) != 0;
-      out.emit(is_m ? OP_M : (is_e ? OP_D : OP_I), 1);
-      if (is_m || !is_e) --i;
-      if (is_m || is_e) --jj;
-      mode = (is_m || !cont) ? TB_H : e_mode;
-      done = i < 0 || jj < 0;
-    }
-  }
-  if (pending >= 0) mbar_wait(&mbar[pending], parity[pending]);  // no copy left in flight
-  if (si >= 0) {  // leading gaps through the virtual row / column
-    if (i >= 0) out.emit(OP_I, i + 1);
-    if (jj >= 0) out.emit(OP_D, jj + 1);
-  }
-  meta_out[0 * P + p] = out.cnt;
-  meta_out[1 * P + p] = is_global ? *s_scr : gmax;
-  meta_out[2 * P + p] = ext_book ? gi : -1;
-  meta_out[3 * P + p] = ext_book ? gj : -1;
-  meta_out[4 * P + p] = ext_book ? (dropped ? 1 : 0) : 0;
-  meta_out[5 * P + p] = out.over ? 1 : 0;
-  meta_out[6 * P + p] = ext_book ? lrmax : NEG;
-  meta_out[7 * P + p] = ext_book ? (lrmax > NEG ? lrarg : 0) : -1;
+  traceback_streamed(dirs + static_cast<size_t>(p) * M * ldn, ldn, dbuf, ldr, mbar, si, sj, out);
+  write_meta(meta_out, P, p, out, is_global, ext_book, *s_scr, book);
 }
 
 }  // namespace

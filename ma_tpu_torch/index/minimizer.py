@@ -7,7 +7,7 @@ support, so they run in int64 and are masked to 32 bits after every
 multiply and shift (`_M32`), which gives the uint32 results bit for bit.
 
 The device lookup is the CHD perfect hash only (two gathers per query),
-built by `ma_tpu.native.chd`; an index whose CHD table cannot be built
+built by `ma_tpu_torch.native.chd`; an index whose CHD table cannot be built
 raises instead of falling back to the binary-search tables.
 """
 from __future__ import annotations
@@ -19,8 +19,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ma_tpu.containers.pack import Pack
-from ma_tpu.native import chd as _chd
+from ma_tpu_torch.containers.pack import Pack
+from ma_tpu_torch.native import chd as _chd
 from ma_tpu_torch.ops.extract import INT_MAX, SeedBatch, compute_delta
 from ma_tpu_torch.ops.sortops import sort_with_payloads
 

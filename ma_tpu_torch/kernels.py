@@ -29,7 +29,7 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 SOURCES = ("errors.cu", "soc_sweep.cu", "linesweep.cu", "dp_fused.cu", "dp_fused_v2.cu",
            "dp_wavefront.cu", "dp_traceback.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "dp_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -108,6 +108,15 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+def query(symbol: str, *args: int) -> int:
+    """Call a host-side C entry of the library that takes ints and returns
+    a 64-bit int (a size the caller allocates, for instance)."""
+    fn = getattr(library(), symbol)
+    fn.argtypes = [ctypes.c_int] * len(args)
+    fn.restype = ctypes.c_longlong
+    return int(fn(*args))
+
+
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
     """Validate a kernel operand: CUDA device, dtype, shape, contiguity."""
     if t.device.type != "cuda":
@@ -134,7 +143,13 @@ class Kernel:
         self.source = source
         self.replaces = replaces
         self.launches = 0
+        # launches and work items per launch shape, for wrappers that name one
+        self.tally: dict = {}
         self._fn = None
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.tally = {}
 
     def _bind(self):
         if self._fn is None:
@@ -145,7 +160,9 @@ class Kernel:
             self._fn = fn
         return self._fn
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, shape=None, items: int = 0) -> None:
+        """Launch with `args` (tensors and ints, in the C signature's order);
+        `shape` (any hashable) and `items` add to the tally."""
         if len(args) != len(self.signature):
             raise TypeError(f"{self.name}: expected {len(self.signature)} arguments")
         dev = next(a.device for a in args if isinstance(a, torch.Tensor))
@@ -157,12 +174,15 @@ class Kernel:
             msg = library().ma_cuda_error_string(rc).decode()
             raise RuntimeError(f"{self.name}: launch failed: {msg} ({rc})")
         self.launches += 1
+        if shape is not None:
+            n, k = self.tally.get(shape, (0, 0))
+            self.tally[shape] = (n + 1, k + items)
 
 
 SOC_SWEEP = Kernel("soc_sweep", "ma_soc_sweep", "ppppppiii",
                    "ma_tpu_torch/csrc/soc_sweep.cu",
                    "ma_tpu/ops/soc_pallas.py:26")
-LINESWEEP = Kernel("linesweep", "ma_linesweep", "ppppppppii",
+LINESWEEP = Kernel("linesweep", "ma_linesweep", "pppppii",
                    "ma_tpu_torch/csrc/linesweep.cu",
                    "ma_tpu/ops/harmonize_pallas.py:26")
 DP_FUSED = Kernel("dp_fused", "ma_dp_fused", "pppppp" + "i" * 12,

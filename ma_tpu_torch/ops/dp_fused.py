@@ -180,19 +180,21 @@ def banded_align_runs(q, t, qlen, tlen, band, *, M: int, N: int,
     """Fused DP + traceback on the tensors' device: the plain version for CPU
     tensors; for CUDA tensors kernel C', where `use_v2(N)`, else kernel C.
     q [P, M], t [P, N] int32 codes; qlen/tlen/band/tb_last [P]. Returns
-    (runs [P, R], meta [8, P])."""
+    (runs [P, R], meta [8, P]). Kernel C's launches are tallied per (M, N,
+    global or extension) with their problem counts (`kernels.DP_FUSED.tally`)."""
     if q.device.type == "cpu" or use_v2(N):
         return banded_align_runs_v2(q, t, qlen, tlen, band, M=M, N=N, params=params,
                                     zdrop=zdrop, is_global=is_global, tb_last=tb_last, R=R)
-    if N > 1024:
-        raise ValueError(f"dp_fused: N={N} exceeds one block of threads (1024)")
+    # bytes per problem of the direction rows kernel C streams out for its own
+    # traceback where the plane is too large for shared memory, else 0
+    scratch = kernels.query("ma_dp_fused_scratch_bytes", M, N)
+    if scratch < 0:
+        raise ValueError(f"dp_fused: N={N} exceeds 256 threads x 4 columns (1024)")
     q, t, meta_in, runs, meta = _operands(q, t, qlen, tlen, band, tb_last, M, N, R)
     P = q.shape[0]
-    # direction bytes of every cell: [P, M, N] uint8 scratch for the
-    # in-kernel traceback (227 KB of shared memory holds one 256 x 768
-    # plane at most, so they live in global memory / L2)
-    dirs = torch.empty((P, M, N), dtype=torch.uint8, device=q.device)
+    dirs = torch.empty(P * scratch, dtype=torch.uint8, device=q.device)
     if P:
         kernels.DP_FUSED.launch(q, t, meta_in, runs, meta, dirs, P, M, N, R,
-                                *_scores(params), zdrop, int(is_global))
+                                *_scores(params), zdrop, int(is_global),
+                                shape=(M, N, "global" if is_global else "extension"), items=P)
     return runs, meta

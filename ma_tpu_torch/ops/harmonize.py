@@ -22,7 +22,7 @@ from typing import NamedTuple
 
 import torch
 
-from ma_tpu_torch.ops.harmonize_cuda import linesweep_sorted
+from ma_tpu_torch.ops.harmonize_cuda import linesweep
 from ma_tpu_torch.ops.soc import SoCBatch
 from ma_tpu_torch.ops.sortops import sel_minor, sort_with_payloads
 
@@ -158,18 +158,12 @@ def _window_extract(planes: torch.Tensor, starts: torch.Tensor, M: int) -> torch
 
 def _linesweep(starts, ends, dists, valid):
     """One shadow line sweep over [..., M] elements -> survivor mask at the
-    original positions. Processing order: invalid last, start asc, end desc."""
+    original positions. Processing order: invalid last, start asc, end desc
+    (kernel B sorts and sweeps each row)."""
     M = starts.shape[-1]
     lead = starts.shape[:-1]
-    key_start = torch.where(valid, starts, torch.full_like(starts, 2**30)).reshape(-1, M)
-    orig = torch.arange(M, dtype=torch.int32, device=starts.device).expand(key_start.shape)
-    _, (s_end, s_dist, s_valid, s_orig) = sort_with_payloads(
-        [key_start, (-ends).reshape(-1, M)],
-        [ends.reshape(-1, M), dists.reshape(-1, M),
-         valid.reshape(-1, M).to(torch.int32), orig],
-    )
-    surv = linesweep_sorted(s_end.contiguous(), s_dist.contiguous(),
-                            s_valid.contiguous(), s_orig.contiguous())
+    surv = linesweep(starts.reshape(-1, M), ends.reshape(-1, M), dists.reshape(-1, M),
+                     valid.reshape(-1, M))
     return surv.reshape(*lead, M)
 
 

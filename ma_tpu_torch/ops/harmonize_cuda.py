@@ -1,21 +1,30 @@
 """Harmonization shadow line sweep: kernel B (csrc/linesweep.cu) and its
-plain PyTorch version (port of ma_tpu/ops/harmonize_pallas.py and of the
-`_linesweep` scan in ma_tpu/ops/harmonize.py:212).
+plain PyTorch version (port of ma_tpu/ops/harmonize_pallas.py together with
+the sort around it in `_linesweep`, ma_tpu/ops/harmonize.py:212).
 
-Elements arrive presorted by (start asc, end desc). A per-row stack of
-(end, dist, seed) entries either grows (the element's end passes every end
-seen so far), replaces the suffix of entries whose end is >= the element's
-(when none of them is closer, dist <= the element's), or kills the element.
-The output is the survivor mask at the elements' ORIGINAL positions.
-`dist` is float32 and both versions compare the same float32 values.
+Each row's valid elements are processed in the order (start asc, end desc,
+original index asc). A per-row stack of (end, dist, seed) entries either
+grows (the element's end passes every end seen so far), replaces the suffix
+of entries whose end is >= the element's (when none of them is closer,
+dist <= the element's), or kills the element. The output is the survivor
+mask at the elements' ORIGINAL positions. `dist` is float32 and both
+versions compare the same float32 values.
+
+The plain version is ma_tpu's two steps: a stable sort of each row by
+(valid ? start : 2^30, -end) carrying the payloads, then the sweep over the
+sorted rows (`linesweep_sorted_plain`). Kernel B does both in one launch.
 """
 from __future__ import annotations
 
 import torch
 
 from ma_tpu_torch import kernels
+from ma_tpu_torch.ops.sortops import sort_with_payloads
 
 BIG = 2**30
+# kernel B takes rows of up to this many elements: the widest SoC window
+# the aligner sweeps, seeds_per_soc of a long read's overflow rescue
+MAX_M = 8192
 
 
 def linesweep_sorted_plain(s_end, s_dist, s_valid, s_orig):
@@ -57,25 +66,35 @@ def linesweep_sorted_plain(s_end, s_dist, s_valid, s_orig):
     return hits > 0
 
 
-def linesweep_sorted(s_end, s_dist, s_valid, s_orig):
+def linesweep_plain(starts, ends, dists, valid):
+    """Plain PyTorch version of kernel B: starts/ends int32 [R, M], dists
+    float32 [R, M], valid bool [R, M] in any order -> survivors bool [R, M]
+    at the original positions (the stable sort, then the sweep)."""
+    R, M = starts.shape
+    key_start = torch.where(valid, starts, torch.full_like(starts, BIG))
+    orig = torch.arange(M, dtype=torch.int32, device=starts.device).expand(R, M)
+    _, (s_end, s_dist, s_valid, s_orig) = sort_with_payloads(
+        [key_start, -ends], [ends, dists, valid.to(torch.int32), orig])
+    return linesweep_sorted_plain(s_end, s_dist, s_valid, s_orig)
+
+
+def linesweep(starts, ends, dists, valid):
     """The sweep on the tensors' device: the plain version for CPU tensors,
-    kernel B for CUDA tensors. Same contract as `linesweep_sorted_plain`."""
-    if s_end.device.type == "cpu":
-        return linesweep_sorted_plain(s_end, s_dist, s_valid, s_orig)
-    R, M = s_end.shape
-    s_valid = s_valid.to(torch.int32).contiguous()
-    kernels.check(s_end, "s_end", torch.int32, (R, M))
-    kernels.check(s_dist, "s_dist", torch.float32, (R, M))
-    kernels.check(s_valid, "s_valid", torch.int32, (R, M))
-    kernels.check(s_orig, "s_orig", torch.int32, (R, M))
-    dev = s_end.device
-    surv = torch.empty((R, M), dtype=torch.uint8, device=dev)
-    # per-row stacks in global scratch, [M, R] so the rows' threads touch
-    # neighbouring words
-    st_end = torch.empty((M, R), dtype=torch.int32, device=dev)
-    st_dist = torch.empty((M, R), dtype=torch.float32, device=dev)
-    st_seed = torch.empty((M, R), dtype=torch.int32, device=dev)
+    kernel B for CUDA tensors. Same contract as `linesweep_plain`."""
+    if starts.device.type == "cpu":
+        return linesweep_plain(starts, ends, dists, valid)
+    R, M = starts.shape
+    if M > MAX_M:
+        raise ValueError(f"linesweep: M={M} exceeds {MAX_M}")
+    starts = starts.to(torch.int32).contiguous()
+    ends = ends.to(torch.int32).contiguous()
+    dists = dists.to(torch.float32).contiguous()
+    valid = valid.to(torch.bool).contiguous().view(torch.uint8)
+    kernels.check(starts, "starts", torch.int32, (R, M))
+    kernels.check(ends, "ends", torch.int32, (R, M))
+    kernels.check(dists, "dists", torch.float32, (R, M))
+    kernels.check(valid, "valid", torch.uint8, (R, M))
+    surv = torch.empty((R, M), dtype=torch.uint8, device=starts.device)
     if R:
-        kernels.LINESWEEP.launch(s_end, s_dist, s_valid, s_orig, surv,
-                                 st_end, st_dist, st_seed, R, M)
-    return surv.bool()
+        kernels.LINESWEEP.launch(starts, ends, dists, valid, surv, R, M)
+    return surv.view(torch.bool)

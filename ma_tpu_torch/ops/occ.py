@@ -1,6 +1,6 @@
 """FMD-index operations on a device (port of ma_tpu/ops/occ.py).
 
-The index is ma_tpu's host `FMDIndex` (fwd || revcomp text, 2-bit BWT in
+The index is the host `FMDIndex` of index/fmd_index.py (fwd || revcomp text, 2-bit BWT in
 128-base blocks of eight 32-bit words, occ checkpoints per block, sampled SA
 every 32 rows); `FMDDev.from_host` puts its arrays on a device. All
 functions are batched over any shape of `k` / `c` / interval tensors and
@@ -16,7 +16,7 @@ from typing import NamedTuple
 
 import torch
 
-from ma_tpu.index.fmd_index import OCC_INTERVAL, SA_INTERVAL, FMDIndex
+from ma_tpu_torch.index.fmd_index import OCC_INTERVAL, SA_INTERVAL, FMDIndex
 
 _CRUMB_LO = 0x55555555
 _M32 = 0xFFFFFFFF

@@ -10,7 +10,7 @@ its reference setting, the fused DP with the native finish).
 The device stage runs on the Aligner's `device` (kernels on a CUDA device,
 their plain versions on the CPU). A batch whose DP problems all fit the
 fused buckets takes the native C++ planner and assembler of
-ma_tpu.pipeline.finish_native (shared with ma_tpu); any other batch (long
+pipeline/finish_native.py (the port's copy of ma_tpu's); any other batch (long
 reads) takes the Python planner and assembler of pipeline/nw.py, exactly
 where ma_tpu does. Options the port does not cover yet raise
 NotImplementedError naming the option.
@@ -23,15 +23,15 @@ from typing import IO, Iterable, List, Sequence
 import numpy as np
 import torch
 
-from ma_tpu.config.parameters import ParameterSet, ParameterSetManager
-from ma_tpu.containers.alignment import Alignment
-from ma_tpu.containers.nucseq import NucSeq, revcomp_codes
-from ma_tpu.containers.pack import Pack
-from ma_tpu.index.fmd_index import FMDIndex
-from ma_tpu.io.sam import SamWriter
-from ma_tpu.pipeline import finish_native
-from ma_tpu.pipeline.quality import mapping_quality
-from ma_tpu.utils.profile import AnalyzeRuntimes, stage_timer
+from ma_tpu_torch.config.parameters import ParameterSet, ParameterSetManager
+from ma_tpu_torch.containers.alignment import Alignment
+from ma_tpu_torch.containers.nucseq import NucSeq, revcomp_codes
+from ma_tpu_torch.containers.pack import Pack
+from ma_tpu_torch.index.fmd_index import FMDIndex
+from ma_tpu_torch.io.sam import SamWriter
+from ma_tpu_torch.pipeline import finish_native
+from ma_tpu_torch.pipeline.quality import mapping_quality
+from ma_tpu_torch.utils.profile import AnalyzeRuntimes, stage_timer
 from ma_tpu_torch.index.minimizer import MinimizerIndex, minimizer_seeding
 from ma_tpu_torch.ops.dp import _dp_desc_runs_fused
 from ma_tpu_torch.ops.extract import INT_MAX, SeedBatch, compute_delta, extract_seeds
@@ -249,10 +249,10 @@ def device_stage_from_seeds(cfg: DeviceStageConfig, contig_starts: torch.Tensor,
 
 def mem_seed_batch(fmd: FMDIndex, seqs: np.ndarray, lens: np.ndarray,
                    cfg: DeviceStageConfig, device) -> SeedBatch:
-    """Host MEM seeding (ma_tpu.ops.mem_seeding, shared with ma_tpu) of a
+    """Host MEM seeding (ops/mem_seeding.py, a copy of ma_tpu's) of a
     [B, L] batch -> SeedBatch on `device` (at most cfg.max_seeds seeds per
     read; the rest flag the read as overflowed)."""
-    from ma_tpu.ops.mem_seeding import materialize_mem_seeds, mem_seeding
+    from ma_tpu_torch.ops.mem_seeding import materialize_mem_seeds, mem_seeding
 
     B, S = seqs.shape[0], cfg.max_seeds
     cols = np.zeros((5, B, S), np.int64)  # q_start, length, ref_start, on_forward, ambiguity

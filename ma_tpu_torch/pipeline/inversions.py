@@ -21,7 +21,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from ma_tpu.containers.alignment import (
+from ma_tpu_torch.containers.alignment import (
     DELETION,
     INSERTION,
     MATCH,
@@ -29,8 +29,8 @@ from ma_tpu.containers.alignment import (
     SEED,
     Alignment,
 )
-from ma_tpu.containers.nucseq import NucSeq
-from ma_tpu.containers.pack import Pack
+from ma_tpu_torch.containers.nucseq import NucSeq
+from ma_tpu_torch.containers.pack import Pack
 from ma_tpu_torch.ops.dp import DPParams, banded_align_traceback, rle_ops
 
 MAX_DIR_BYTES = 2**30  # direction bytes per device call

@@ -16,7 +16,7 @@ traceback kernel (ops/dp.py `_dp_tb_desc_runs`). Problems whose runs
 overflow kernel C's run buffer are redone through kernel D. `assemble`
 turns the plan tokens and cigars into an Alignment on the host.
 
-The native C++ planner/assembler (`ma_tpu.pipeline.finish_native`) covers
+The native C++ planner/assembler (`ma_tpu_torch.pipeline.finish_native`) covers
 batches whose problems all fit the fused buckets; this module is the path
 for the rest, and the run-overflow redo of both.
 """
@@ -28,9 +28,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ma_tpu.containers.alignment import DELETION, INSERTION, SEED, Alignment
-from ma_tpu.containers.pack import Pack
-from ma_tpu.utils.profile import stage_timer
+from ma_tpu_torch.containers.alignment import DELETION, INSERTION, SEED, Alignment
+from ma_tpu_torch.containers.pack import Pack
+from ma_tpu_torch.utils.profile import stage_timer
 from ma_tpu_torch.ops.dp import (
     OP_I,
     OP_M,
@@ -317,7 +317,7 @@ class NWAligner:
                     part = idxs[s : s + max_p]
                     width = N
                     if use_fused and N > self.N_LADDER_FUSED[-1]:
-                        # kernel C runs a thread per column (<= 1024): a fused
+                        # kernel C takes N <= 1024 (4 columns a thread): a fused
                         # bucket past the fused ladder (an extension with
                         # m = 256, n = 769) runs as wide as its longest
                         # reference needs; no result depends on the width

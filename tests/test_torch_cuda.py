@@ -6,6 +6,9 @@ and skip without one; on a machine with a card run
 
 (--noconftest: tests/conftest.py configures JAX, which that machine lacks.)
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -44,22 +47,32 @@ def test_soc_sweep_kernel(cuda):
     assert bool(got[2].any())  # K = 8 slots overflow
 
 
-@pytest.mark.parametrize("M", [64, 2048])
+@pytest.mark.parametrize("M", [64, 2048, 40, 100, 4096, 8192])
 def test_linesweep_kernel(cuda, M):
-    from ma_tpu_torch.ops.harmonize_cuda import linesweep_sorted, linesweep_sorted_plain
+    """Kernel B (sort and sweep) on unsorted rows against its plain version
+    (the stable sort, then the sweep): ties in start, end and distance,
+    invalid elements, R = 257 rows (not a multiple of the 32-row tile); the
+    warp-tile path (M <= 64) and the block-per-row path, up to the overflow
+    rescue's widest rows (8192, 168 KB of shared memory)."""
+    from ma_tpu_torch.ops.harmonize_cuda import linesweep, linesweep_plain
 
     rng = np.random.default_rng(M)
     R = 257
     starts = rng.integers(0, 300, (R, M))
     ends = starts + rng.integers(10, 50, (R, M))
-    order = np.lexsort((-ends, starts), axis=-1)
+    starts[:, 5:12] = starts[:, 5:6]  # start ties
+    ends[:, 20:26] = ends[:, 20:21]  # end ties
+    starts[:, 30:33] = starts[:, 30:31]  # whole-interval ties
+    ends[:, 30:33] = ends[:, 30:31]
     dev = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=cuda)
-    ops = (dev(np.take_along_axis(ends, order, 1), torch.int32),
+    ops = (dev(starts, torch.int32), dev(ends, torch.int32),
            dev(rng.integers(0, 8, (R, M)) * 0.5, torch.float32),
-           dev(rng.random((R, M)) < 0.8, torch.int32), dev(order, torch.int32))
-    got = linesweep_sorted(*ops)
+           dev(rng.random((R, M)) < 0.8, torch.bool))
+    got = linesweep(*ops)
     torch.cuda.synchronize()
-    assert torch.equal(got, linesweep_sorted_plain(*ops))
+    want = linesweep_plain(*ops)
+    assert torch.equal(got, want)
+    assert 0 < int(want.sum()) < int(ops[3].sum())
 
 
 @pytest.mark.parametrize("is_global", [True, False])
@@ -155,6 +168,52 @@ def test_dp_fused_v2_direction_bytes(cuda, N):
     assert torch.equal(torch.where(rows, dirs, 0), torch.where(rows, want, 0))
 
 
+@pytest.mark.parametrize("M,N", [(32, 128), (64, 128), (256, 128), (64, 768), (256, 768),
+                                 (256, 896), (40, 200)])
+@pytest.mark.parametrize("is_global", [True, False])
+@pytest.mark.parametrize("R", [8, 2])
+def test_dp_fused_kernel_buckets(cuda, M, N, is_global, R):
+    """Kernel C at every fused bucket (one-warp teams, multi-warp teams with
+    the plane in shared memory, streamed planes at 256 x 768 and 896) in
+    both modes: bands narrower than the row, global problems whose last
+    cell lies outside the band, extensions that z-drop within a few rows,
+    and run overflow (R = 2). Exact against the plain version and C'."""
+    from ma_tpu_torch import kernels
+    from ma_tpu_torch.ops.dp import DPParams
+    from ma_tpu_torch.ops.dp_fused import (
+        banded_align_runs, banded_align_runs_plain, banded_align_runs_v2,
+    )
+
+    rng = np.random.default_rng(7 * M + N + int(is_global))
+    args, tb = _dp_problems(rng, 70, M, N, is_global, cuda)
+    kw = dict(M=M, N=N, params=DPParams(), zdrop=-1 if is_global else 30,
+              is_global=is_global, tb_last=tb, R=R)
+    before = kernels.DP_FUSED.launches
+    got = banded_align_runs(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernels.DP_FUSED.launches == before + 1
+    want = banded_align_runs_plain(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, b) for a, b in zip(got, banded_align_runs_v2(*args, **kw)))
+    meta = want[1].cpu().numpy()
+    assert R == 8 or meta[5].any()  # run overflow
+    assert is_global or M < 64 or meta[4].any()  # z-drops
+
+
+def test_dp_fused_tally(cuda):
+    """Kernel C's tally counts launches and problems per (M, N, mode)."""
+    from ma_tpu_torch import kernels
+    from ma_tpu_torch.ops.dp_fused import banded_align_runs
+
+    args, tb = _dp_problems(np.random.default_rng(5), 16, 32, 128, False, cuda)
+    kernels.DP_FUSED.reset()
+    for _ in range(2):
+        banded_align_runs(*args, M=32, N=128, zdrop=30, is_global=False, tb_last=tb)
+    banded_align_runs(*args, M=32, N=128, is_global=True)
+    assert kernels.DP_FUSED.tally == {(32, 128, "extension"): (2, 32), (32, 128, "global"): (1, 16)}
+    assert kernels.DP_FUSED.launches == 3
+
+
 def test_dp_v2_selection_launches_c_prime(cuda, monkeypatch):
     from ma_tpu_torch import kernels
     from ma_tpu_torch.ops.dp_fused import banded_align_runs
@@ -171,8 +230,8 @@ def test_dp_v2_selection_launches_c_prime(cuda, monkeypatch):
 
 def test_fmd_ops_on_cuda(cuda):
     """occ4 and extend_backward on CUDA tensors against the CPU."""
-    from ma_tpu.containers.pack import Pack
-    from ma_tpu.index.fmd_index import FMDIndex
+    from ma_tpu_torch.containers.pack import Pack
+    from ma_tpu_torch.index.fmd_index import FMDIndex
     from ma_tpu_torch.ops import occ
 
     rng = np.random.default_rng(8)
@@ -223,11 +282,24 @@ def test_dp_wavefront_and_traceback_kernels(cuda, monkeypatch, is_global, zdrop,
                                                                             got.max_j)))
 
 
+def test_long_read_rescue_on_card(cuda):
+    """chip_smoke.py's rescue phase: 5 and 10 kb reads across a tandem repeat
+    overflow their SoC windows and re-align through the rescue pass, whose
+    stage sweeps rows of 4,096 and 8,192 seeds through kernel B (exact
+    against its plain version on the rescue's own rows); each read's primary
+    record overlaps the interval it was taken from."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    smoke.rescue_phase(cuda)
+
+
 def test_kernels_count_launches(cuda):
     from ma_tpu_torch import kernels
-    from ma_tpu_torch.ops.harmonize_cuda import linesweep_sorted
+    from ma_tpu_torch.ops.harmonize_cuda import linesweep
 
     before = kernels.LINESWEEP.launches
     z = torch.zeros((4, 64), dtype=torch.int32, device=cuda)
-    linesweep_sorted(z, z.float(), z, z)
+    linesweep(z, z, z.float(), z.bool())
     assert kernels.LINESWEEP.launches == before + 1

@@ -171,9 +171,10 @@ def test_run_overflow_redo_matches_ma_tpu(is_global, monkeypatch):
     R = 4) are redone through kernel D + the traceback kernel: the cigars of
     the native path's redo_one and of the Python path's _redo_batched equal
     ma_tpu's _redo_one (MA_TPU_DP=fused: the XLA anti-diagonal DP)."""
-    from ma_tpu.containers.pack import Pack
+    from ma_tpu.containers.pack import Pack as JPack
     from ma_tpu.pipeline.nw import DPProblem as JProblem
     from ma_tpu.pipeline.nw import NWAligner as JNW
+    from ma_tpu_torch.containers.pack import Pack
     from ma_tpu_torch.pipeline.nw import DPProblem, NWAligner, NWConfig
 
     rng = np.random.default_rng(21)
@@ -199,12 +200,13 @@ def test_run_overflow_redo_matches_ma_tpu(is_global, monkeypatch):
     over = np.flatnonzero(meta[5].numpy())
     assert len(over) >= P // 2
 
-    pack = Pack.empty()
+    jpack, pack = JPack.empty(), Pack.empty()
+    jpack.append("g", text)
     pack.append("g", text)
     monkeypatch.setenv("MA_TPU_DP", "fused")
     jax.clear_caches()
     try:
-        jnw = JNW(pack, text_dev=jnp.asarray(text), seqs_dev=jnp.asarray(seqs))
+        jnw = JNW(jpack, text_dev=jnp.asarray(text), seqs_dev=jnp.asarray(seqs))
         want = []
         for k in over:
             jnw._problems.append(JProblem(q=None, t=None, band=40, is_global=is_global,

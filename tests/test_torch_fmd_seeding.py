@@ -23,14 +23,16 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from ma_tpu.config.parameters import ParameterSetManager  # noqa: E402
-from ma_tpu.containers.nucseq import revcomp_codes  # noqa: E402
-from ma_tpu.containers.pack import Pack  # noqa: E402
-from ma_tpu.index.fmd_index import FMDIndex  # noqa: E402
+from ma_tpu.containers.pack import Pack as JPack  # noqa: E402
+from ma_tpu.index.fmd_index import FMDIndex as JFMDIndex  # noqa: E402
 from ma_tpu.ops import extract as JE  # noqa: E402
 from ma_tpu.ops import occ as JO  # noqa: E402
 from ma_tpu.ops import seeding as JS  # noqa: E402
 from ma_tpu.pipeline import aligner as JA  # noqa: E402
+from ma_tpu_torch.config.parameters import ParameterSetManager  # noqa: E402
+from ma_tpu_torch.containers.nucseq import revcomp_codes  # noqa: E402
+from ma_tpu_torch.containers.pack import Pack  # noqa: E402
+from ma_tpu_torch.index.fmd_index import FMDIndex  # noqa: E402
 from ma_tpu_torch.ops import extract as TE  # noqa: E402
 from ma_tpu_torch.ops import occ as TO  # noqa: E402
 from ma_tpu_torch.ops import seeding as TS  # noqa: E402
@@ -61,7 +63,9 @@ def _reads(rng, genome, B, err):
 
 @functools.lru_cache(maxsize=None)
 def genome_fixture(name):
-    """(pack, host FMD index, seqs [B, 256] uint8, lens [B] int32)."""
+    """(pack, host FMD index, ma_tpu's host FMD index of the same genome,
+    seqs [B, 256] uint8, lens [B] int32); the two indexes hold the same
+    arrays."""
     if name == "60k":
         rng = np.random.default_rng(99)
         genome = rng.integers(0, 4, 60_000).astype(np.uint8)
@@ -81,9 +85,14 @@ def genome_fixture(name):
         lens[10] = 0
         seqs[22, :150] = genome[30_100:30_250]
         seqs[23, :150] = genome[30_350:30_500]
-    pack = Pack.empty()
+    pack, jpack = Pack.empty(), JPack.empty()
     pack.append("g", genome)
-    return pack, FMDIndex.build(pack), seqs, lens
+    jpack.append("g", genome)
+    fmd, jfmd = FMDIndex.build(pack), JFMDIndex.build(jpack)
+    for name in ("bwt_words", "occ_cp", "L2", "ssa"):
+        assert np.array_equal(getattr(fmd, name), getattr(jfmd, name)), name
+    assert (fmd.n, fmd.primary) == (jfmd.n, jfmd.primary)
+    return pack, fmd, jfmd, seqs, lens
 
 
 def configs(technique):
@@ -112,10 +121,10 @@ def extract_kw(cfg):
 def run(genome, technique):
     """Both packages' segments, seeds and device stage on one fixture, and
     the port's stage tail on ma_tpu's seeds."""
-    pack, fmd, seqs, lens = genome_fixture(genome)
+    pack, fmd, jfmd, seqs, lens = genome_fixture(genome)
     jcfg, tcfg = configs(technique)
     cs = np.asarray(pack.starts, np.int32)
-    jdev, tdev = JO.FMDDev.from_host(fmd), TO.FMDDev.from_host(fmd, "cpu")
+    jdev, tdev = JO.FMDDev.from_host(jfmd), TO.FMDDev.from_host(fmd, "cpu")
     jseed = JS.smem_seeding if technique == "SMEMs" else JS.max_spanning_seeding
     tseed = TS.smem_seeding if technique == "SMEMs" else TS.max_spanning_seeding
     jsegs = jseed(jdev, jnp.asarray(seqs), jnp.asarray(lens), **seed_kw(jcfg))
@@ -163,7 +172,7 @@ def test_unlumped_seeds_harmonize_as_ma_tpu(genome, technique):
     through the port's soc_collect -> harmonization -> _harm_pack_core."""
     r = run(genome, technique)
     jh = same_stage(r["jout"], r["tail"])
-    assert np.asarray(jh.set_valid).sum() >= len(genome_fixture(genome)[2]) // 2
+    assert np.asarray(jh.set_valid).sum() >= len(genome_fixture(genome)[3]) // 2
 
 
 @pytest.mark.parametrize("genome,technique", CASES)
@@ -220,7 +229,7 @@ def test_repeat_fixture_edge_reads():
 def test_overflow(technique, cap):
     """Small segment capacity or iteration cap: the same segments kept and
     the same reads flagged as in ma_tpu."""
-    pack, fmd, seqs, lens = genome_fixture("repeat")
+    pack, fmd, jfmd, seqs, lens = genome_fixture("repeat")
     jcfg, _ = configs(technique)
     kw = seed_kw(jcfg)
     if cap == "max_segs":
@@ -229,7 +238,7 @@ def test_overflow(technique, cap):
         kw["iter_cap"] = 60
     jseed = JS.smem_seeding if technique == "SMEMs" else JS.max_spanning_seeding
     tseed = TS.smem_seeding if technique == "SMEMs" else TS.max_spanning_seeding
-    want = jseed(JO.FMDDev.from_host(fmd), jnp.asarray(seqs), jnp.asarray(lens), **kw)
+    want = jseed(JO.FMDDev.from_host(jfmd), jnp.asarray(seqs), jnp.asarray(lens), **kw)
     got = tseed(TO.FMDDev.from_host(fmd, "cpu"), torch.as_tensor(seqs), torch.as_tensor(lens),
                 **kw)
     same_fields(want, got)

@@ -10,12 +10,11 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from ma_tpu.containers.nucseq import revcomp_codes  # noqa: E402
-from ma_tpu.containers.pack import Pack  # noqa: E402
 from ma_tpu.ops import harmonize as JH  # noqa: E402
 from ma_tpu.ops.harmonize_pallas import linesweep_sorted_pallas  # noqa: E402
+from ma_tpu_torch.containers.nucseq import revcomp_codes  # noqa: E402
 from ma_tpu_torch.ops import harmonize as TH  # noqa: E402
-from ma_tpu_torch.ops.harmonize_cuda import linesweep_sorted_plain  # noqa: E402
+from ma_tpu_torch.ops.harmonize_cuda import linesweep_plain, linesweep_sorted_plain  # noqa: E402
 from ma_tpu_torch.ops.sortops import sort_with_payloads  # noqa: E402
 
 # the suite runs several test processes side by side on the CPU; one
@@ -135,23 +134,61 @@ def test_harmonize_sets_same_diagonal_overlap_divergence(monkeypatch):
         assert same.any(), f"mask differs in set {idx} without a same-diagonal overlap"
 
 
+
+@pytest.mark.parametrize("lead,M", [((6, 5), 64), ((3,), 2048), ((1,), 8192)])
+def test_linesweep_plain_matches_ma_tpu_on_unsorted_rows(lead, M, monkeypatch):
+    """Kernel B's plain version (the stable sort, then the sweep) on rows in
+    any order, with start, end and distance ties and invalid elements,
+    against ma_tpu's _linesweep (its XLA scan) at both main-path widths and
+    at the widest, a long read's overflow rescue."""
+    starts, ends, dists, valid = _shadows(7, lead, M)
+    got = linesweep_plain(*(torch.as_tensor(a).reshape(-1, M)
+                            for a in (starts, ends, dists, valid))).numpy()
+    monkeypatch.setenv("MA_TPU_SWEEP", "xla")
+    seed_idx = jnp.broadcast_to(jnp.arange(M, dtype=jnp.int32), starts.shape)
+    want = np.asarray(JH._linesweep(jnp.asarray(starts), jnp.asarray(ends),
+                                    jnp.asarray(dists), seed_idx, jnp.asarray(valid)))
+    assert np.array_equal(got, want.reshape(-1, M))
+    assert 0 < got.sum() < valid.sum()
+
+
+@pytest.mark.parametrize("preset", ["Default", "PacBio"])
+def test_kernel_b_takes_every_sweep_width(preset):
+    """The rows the aligner sweeps are seeds_per_soc wide: at every read
+    length bucket, in the overflow rescue's boosted stage too (cap_boost 4),
+    they fit kernel B, whose widest rows are the rescue's."""
+    from ma_tpu_torch.config.parameters import ParameterSetManager
+    from ma_tpu_torch.ops.harmonize_cuda import MAX_M
+    from ma_tpu_torch.pipeline.aligner import DeviceStageConfig
+
+    mgr = ParameterSetManager()
+    mgr.set_selected(preset)
+    widths = {DeviceStageConfig.from_params(mgr.selected, 2**e, cap_boost=cb).seeds_per_soc
+              for e in range(5, 17) for cb in (1, 4)}
+    assert max(widths) == MAX_M
+
+
 @pytest.fixture(scope="module")
 def stage():
     """The minimizer device stage of both packages on one read batch: a
     60 kbp genome with a 7-periodic tandem repeat, reads at 2%
     substitutions (half reverse complemented), reads with Ns and repeat
     reads."""
-    from ma_tpu.config.parameters import ParameterSetManager
+    from ma_tpu.config.parameters import ParameterSetManager as JManager
+    from ma_tpu.containers.pack import Pack as JPack
     from ma_tpu.index.minimizer import MinimizerIndex as JMI
     from ma_tpu.pipeline import aligner as JA
+    from ma_tpu_torch.config.parameters import ParameterSetManager
+    from ma_tpu_torch.containers.pack import Pack
     from ma_tpu_torch.index.minimizer import MinimizerIndex as TMI
     from ma_tpu_torch.pipeline import aligner as TA
 
     rng = np.random.default_rng(17)
     genome = rng.integers(0, 4, 60_000).astype(np.uint8)
     genome[30_000:30_420] = np.tile(rng.integers(0, 4, 7), 60).astype(np.uint8)
-    pack = Pack.empty()
+    pack, jpack = Pack.empty(), JPack.empty()
     pack.append("g", genome)
+    jpack.append("g", genome)
     L, B = 256, 24
     seqs = np.full((B, L), 4, np.uint8)
     lens = np.full(B, 150, np.int32)
@@ -167,14 +204,15 @@ def stage():
         seqs[i, :150] = codes
     seqs[B - 2, :150] = genome[30_100:30_250]
     seqs[B - 1, :150] = genome[30_350:30_500]
-    pset = ParameterSetManager().selected
+    pset, jpset = ParameterSetManager().selected, JManager().selected
     pset.set("Seeding Technique", "minimizers")
-    jcfg = JA.DeviceStageConfig.from_params(pset, L)
+    jpset.set("Seeding Technique", "minimizers")
+    jcfg = JA.DeviceStageConfig.from_params(jpset, L)
     tcfg = TA.DeviceStageConfig.from_params(pset, L)
     assert dataclass_fields(jcfg) == dataclass_fields(tcfg)
     cs = np.asarray(pack.starts, np.int32)
     Lf = pack.unpacked_size_forward_strand
-    jout = JA.device_stage_mm(jcfg, JMI.build(pack, jcfg.mm_k, jcfg.mm_w).to_device(),
+    jout = JA.device_stage_mm(jcfg, JMI.build(jpack, jcfg.mm_k, jcfg.mm_w).to_device(),
                               jnp.asarray(cs), Lf, jnp.asarray(seqs), jnp.asarray(lens))
     tout = TA.device_stage_mm(tcfg, TMI.build(pack, tcfg.mm_k, tcfg.mm_w).to_device("cpu"),
                               torch.as_tensor(cs), Lf, torch.as_tensor(seqs),

@@ -4,6 +4,7 @@ cigars from the device traceback equal to the host traceback's), and short
 reads with inversions on: the native plan with Alignment objects to SAM,
 byte-identical to ma_tpu's under MA_TPU_DP=fused, MA_TPU_FINISH=native."""
 import copy
+import importlib
 import io
 
 import numpy as np
@@ -12,10 +13,9 @@ import torch
 
 jax = pytest.importorskip("jax")
 
-from ma_tpu.containers.alignment import DELETION, INSERTION, MATCH, MISMATCH, SEED, Alignment  # noqa: E402,E501
-from ma_tpu.containers.nucseq import NucSeq, decode_seq, revcomp_codes  # noqa: E402
-from ma_tpu.containers.pack import Pack  # noqa: E402
 from ma_tpu.pipeline import inversions as JI  # noqa: E402
+from ma_tpu_torch.containers.alignment import DELETION, INSERTION, MATCH, MISMATCH, SEED  # noqa: E402,E501
+from ma_tpu_torch.containers.nucseq import NucSeq, decode_seq, revcomp_codes  # noqa: E402
 from ma_tpu_torch.ops.dp import DPParams, traceback_one  # noqa: E402
 from ma_tpu_torch.ops.dp_wavefront import banded_align_wavefront  # noqa: E402
 from ma_tpu_torch.pipeline import inversions as TI  # noqa: E402
@@ -25,7 +25,9 @@ from ma_tpu_torch.pipeline import inversions as TI  # noqa: E402
 torch.set_num_threads(1)
 
 
-def _aln(begin_ref, begin_q, ops):
+def _aln(begin_ref, begin_q, ops, pkg="ma_tpu_torch"):
+    """An Alignment of package `pkg` (the op codes are the same in both)."""
+    Alignment = importlib.import_module(pkg + ".containers.alignment").Alignment
     a = Alignment(begin_on_ref=begin_ref, begin_on_query=begin_q)
     for op, n in ops:
         a.append(op, n)
@@ -39,14 +41,18 @@ def _aln(begin_ref, begin_q, ops):
      (MATCH, 3), (SEED, 10)],
 ])
 def test_for_all_drop_pos(ops):
-    a = _aln(1000, 5, ops)
     args = (2, 4, 4, 2, 100)
-    assert TI.for_all_drop_pos(a, *args) == JI.for_all_drop_pos(a, *args)
+    assert (TI.for_all_drop_pos(_aln(1000, 5, ops), *args)
+            == JI.for_all_drop_pos(_aln(1000, 5, ops, "ma_tpu"), *args))
 
 
-def _inversion_case():
+def _inversion_case(pkg="ma_tpu_torch"):
     """A genome and reads carrying inverted stretches, with alignments that
-    replay them as mismatch / indel windows between seeds."""
+    replay them as mismatch / indel windows between seeds, as objects of
+    package `pkg`."""
+    nucseq = importlib.import_module(pkg + ".containers.nucseq")
+    NucSeq = nucseq.NucSeq
+    Pack = importlib.import_module(pkg + ".containers.pack").Pack
     rng = np.random.default_rng(77)
     genome = rng.integers(0, 4, size=16_384).astype(np.uint8)
     pack = Pack.empty()
@@ -61,21 +67,23 @@ def _inversion_case():
         mid = ([(MISMATCH, inv_len)] if k != 1
                else [(DELETION, inv_len // 2), (MISMATCH, inv_len - inv_len // 2),
                      (INSERTION, inv_len // 2)])
-        alns.append([_aln(p, 0, [(SEED, fwd)] + mid + [(SEED, fwd)])])
-    alns[2].append(_aln(12000, 0, [(SEED, 60), (MATCH, 90), (SEED, 60)]))  # no window
+        alns.append([_aln(p, 0, [(SEED, fwd)] + mid + [(SEED, fwd)], pkg)])
+    alns[2].append(_aln(12000, 0, [(SEED, 60), (MATCH, 90), (SEED, 60)], pkg))  # no window
     return pack, reads, alns
 
 
 def _fields(per_read):
+    # repr: the packages' Alignment objects are distinct, and NaN != NaN
     return [[(a.data, a.begin_on_ref, a.end_on_ref, a.begin_on_query, a.end_on_query,
-              a.supplementary, a.secondary, a.mapping_quality, a.score()) for a in alns]
+              a.supplementary, a.secondary, repr(a.mapping_quality), a.score()) for a in alns]
             for alns in per_read]
 
 
 def test_small_inversions_matches_ma_tpu(monkeypatch):
     pack, reads, alns = _inversion_case()
-    want, one_call, split = (copy.deepcopy(alns) for _ in range(3))
-    JI.small_inversions(want, reads, pack, params=DPParams())
+    one_call, split = (copy.deepcopy(alns) for _ in range(2))
+    jpack, jreads, want = _inversion_case("ma_tpu")
+    JI.small_inversions(want, jreads, jpack, params=DPParams())
     TI.small_inversions(one_call, reads, pack, device="cpu", params=DPParams())
     monkeypatch.setattr(TI, "MAX_DIR_BYTES", 1)  # one window per device call
     TI.small_inversions(split, reads, pack, device="cpu", params=DPParams())
@@ -103,13 +111,15 @@ def test_window_cigars_equal_host_traceback():
     assert len(cigars) == 3
 
 
-def _short_fixture():
+def _short_fixture(pkg="ma_tpu_torch"):
     """The 60 kbp genome and 150 bp reads of tests/test_torch_slice.py, plus
     three 220 bp reads of 80 forward + 60 inverted (mutated every 12 bases)
-    + 80 forward bases, as tests/test_inversions.py builds them."""
+    + 80 forward bases, as tests/test_inversions.py builds them; objects of
+    package `pkg`."""
     from test_torch_slice import _fixture
 
-    pack, reads = _fixture()
+    NucSeq = importlib.import_module(pkg + ".containers.nucseq").NucSeq
+    pack, reads = _fixture(pkg)
     genome = np.asarray(pack.codes, np.uint8)
     for k, p in enumerate((4000, 21000, 47000)):
         inv = revcomp_codes(genome[p + 80 : p + 140]).copy()
@@ -128,6 +138,7 @@ def test_short_reads_sam_identical_to_ma_tpu(monkeypatch):
     from ma_tpu_torch.pipeline.aligner import Aligner
 
     pack, reads = _short_fixture()
+    jpack, jreads = _short_fixture("ma_tpu")
     port = Aligner(pack, device="cpu")
     port.pset.set("Seeding Technique", "minimizers")
     port.pset.set("Detect Small Inversions", True)
@@ -138,11 +149,11 @@ def test_short_reads_sam_identical_to_ma_tpu(monkeypatch):
     monkeypatch.setenv("MA_TPU_FINISH", "native")
     jax.clear_caches()
     try:
-        ref = JAligner(pack, FMDIndex.build(pack))
+        ref = JAligner(jpack, FMDIndex.build(jpack))
         ref.pset.set("Seeding Technique", "minimizers")
         ref.pset.set("Detect Small Inversions", True)
         want = io.StringIO()
-        ref.align_to_sam(iter(reads), want, batch_size=32)
+        ref.align_to_sam(iter(jreads), want, batch_size=32)
     finally:
         jax.clear_caches()
     assert got.getvalue() == want.getvalue()

@@ -19,11 +19,11 @@ import torch
 # intra-op thread each keeps torch's many small ops from contending
 torch.set_num_threads(1)
 
+# `fixture(pkg)` and `params(pkg)` build objects of package `pkg`
+# (ma_tpu_torch or ma_tpu) from the same numpy draws
 FIXTURE = """
+import importlib
 import numpy as np
-from ma_tpu.config.parameters import ParameterSetManager
-from ma_tpu.containers.nucseq import NucSeq, decode_seq, revcomp_codes
-from ma_tpu.containers.pack import Pack
 
 def simulate(rng, genome, p, L, err):
     out, i = [], p
@@ -42,7 +42,10 @@ def simulate(rng, genome, p, L, err):
         i += 1
     return np.asarray(out, np.uint8)
 
-def fixture():
+def fixture(pkg="ma_tpu_torch"):
+    nucseq = importlib.import_module(pkg + ".containers.nucseq")
+    NucSeq, decode_seq, revcomp_codes = nucseq.NucSeq, nucseq.decode_seq, nucseq.revcomp_codes
+    Pack = importlib.import_module(pkg + ".containers.pack").Pack
     rng = np.random.default_rng(31)
     G = 100_000
     genome = rng.integers(0, 4, size=G).astype(np.uint8)
@@ -63,8 +66,8 @@ def fixture():
         reads.append(NucSeq.from_str(decode_seq(codes), name=f"L{i}_{p}"))
     return pack, reads
 
-def params():
-    mgr = ParameterSetManager()
+def params(pkg="ma_tpu_torch"):
+    mgr = importlib.import_module(pkg + ".config.parameters").ParameterSetManager()
     mgr.set_selected("PacBio")
     mgr.selected.set("Seeding Technique", "minimizers")
     mgr.selected.set("Detect Small Inversions", True)
@@ -72,14 +75,14 @@ def params():
 """
 
 
-def _fixture():
+def _fixture(pkg="ma_tpu_torch"):
     """~100 kbp random genome, four 2.2-3 kb reads at 5% error (40%
     insertions, 40% deletions, 20% substitutions), two reverse complemented;
     read 1 carries a 400-base stretch at 35% substitutions and read 2 a
     200-base inverted stretch."""
     scope: dict = {}
     exec(FIXTURE, scope)
-    return scope["fixture"](), scope["params"]
+    return scope["fixture"](pkg), scope["params"]
 
 
 def _port_sam(pack, reads, pset, **kw):
@@ -109,9 +112,10 @@ def test_long_sam_identical_to_ma_tpu(fused_ma_tpu, monkeypatch):
     from ma_tpu_torch.pipeline import aligner as TA
     from ma_tpu_torch.pipeline.nw import NWAligner
 
-    (pack, reads), params = _fixture()
+    (jpack, jreads), params = _fixture("ma_tpu")
     ref = io.StringIO()
-    JAligner(pack, FMDIndex.build(pack), params=params()).align_to_sam(iter(reads), ref)
+    JAligner(jpack, FMDIndex.build(jpack), params=params("ma_tpu")).align_to_sam(iter(jreads), ref)
+    (pack, reads), _ = _fixture()
 
     seen = {"python": 0, "chunked": 0}
     plan_python, chunked = TA.Aligner._plan_python, NWAligner._chunked_ext
@@ -151,16 +155,18 @@ def test_python_path_matches_native_path(monkeypatch):
 def _nw_pair(genome, q):
     """The two packages' NWAligner over one genome and a one-read batch."""
     import jax.numpy as jnp
-    from ma_tpu.containers.nucseq import revcomp_codes
-    from ma_tpu.containers.pack import Pack
+    from ma_tpu.containers.pack import Pack as JPack
     from ma_tpu.pipeline.nw import NWAligner as JNW
+    from ma_tpu_torch.containers.nucseq import revcomp_codes
+    from ma_tpu_torch.containers.pack import Pack
     from ma_tpu_torch.pipeline.nw import NWAligner as TNW
     from ma_tpu_torch.pipeline.nw import NWConfig
 
-    pack = Pack.empty()
+    jpack, pack = JPack.empty(), Pack.empty()
+    jpack.append("c", genome)
     pack.append("c", genome)
     text = np.concatenate([genome, revcomp_codes(genome)])
-    jnw = JNW(pack, text_dev=jnp.asarray(text), seqs_dev=jnp.asarray(q[None]))
+    jnw = JNW(jpack, text_dev=jnp.asarray(text), seqs_dev=jnp.asarray(q[None]))
     tnw = TNW(pack, NWConfig(), torch.as_tensor(text), torch.as_tensor(q[None]), text,
               q[None], None)
     return jnw, tnw
@@ -284,6 +290,7 @@ def test_long_path_imports_no_jax():
         Aligner(pack, params(), device="cpu").align_to_sam(iter(reads), out)
         assert sum(not r.startswith("@") for r in out.getvalue().splitlines()) >= len(reads)
         print("JAX_LOADED" if "jax" in sys.modules else "NO_JAX")
+        assert not [m for m in sys.modules if m == "ma_tpu" or m.startswith("ma_tpu.")]
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     env["OMP_NUM_THREADS"] = "1"

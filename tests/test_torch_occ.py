@@ -9,9 +9,11 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from ma_tpu.containers.pack import Pack  # noqa: E402
-from ma_tpu.index.fmd_index import FMDIndex, fm_text_from_pack  # noqa: E402
+from ma_tpu.containers.pack import Pack as JPack  # noqa: E402
+from ma_tpu.index.fmd_index import FMDIndex as JFMDIndex  # noqa: E402
 from ma_tpu.ops import occ as J  # noqa: E402
+from ma_tpu_torch.containers.pack import Pack  # noqa: E402
+from ma_tpu_torch.index.fmd_index import FMDIndex, fm_text_from_pack  # noqa: E402
 from ma_tpu_torch.ops import occ as T  # noqa: E402
 
 # the suite runs several test processes side by side on the CPU; one
@@ -21,14 +23,16 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope="module")
 def index():
-    """A 3 kbp genome with a tandem repeat (text 6,000 + $): 47 occ blocks."""
+    """A 3 kbp genome with a tandem repeat (text 6,000 + $): 47 occ blocks.
+    Each package's FMDDev comes from its own host index."""
     rng = np.random.default_rng(5)
     genome = rng.integers(0, 4, 3000).astype(np.uint8)
     genome[1000:1210] = np.tile(rng.integers(0, 4, 7), 30).astype(np.uint8)
-    pack = Pack.empty()
+    jpack, pack = JPack.empty(), Pack.empty()
+    jpack.append("g", genome)
     pack.append("g", genome)
     fmd = FMDIndex.build(pack)
-    return fmd, J.FMDDev.from_host(fmd), T.FMDDev.from_host(fmd, "cpu"), pack
+    return fmd, J.FMDDev.from_host(JFMDIndex.build(jpack)), T.FMDDev.from_host(fmd, "cpu"), pack
 
 
 def _rows(fmd):

@@ -7,11 +7,12 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from ma_tpu.containers.nucseq import revcomp_codes  # noqa: E402
-from ma_tpu.containers.pack import Pack  # noqa: E402
+from ma_tpu.containers.pack import Pack as JPack  # noqa: E402
 from ma_tpu.index import minimizer as J  # noqa: E402
 from ma_tpu.ops import filters as JF  # noqa: E402
 from ma_tpu.ops.extract import SeedBatch as JSeedBatch  # noqa: E402
+from ma_tpu_torch.containers.nucseq import revcomp_codes  # noqa: E402
+from ma_tpu_torch.containers.pack import Pack  # noqa: E402
 from ma_tpu_torch.index import minimizer as T  # noqa: E402
 from ma_tpu_torch.ops import filters as TF  # noqa: E402
 from ma_tpu_torch.ops.extract import SeedBatch as TSeedBatch  # noqa: E402
@@ -34,9 +35,10 @@ def setup():
     a[12_000:12_420] = np.tile(rng.integers(0, 4, 7), 60).astype(np.uint8)
     a[5_000:5_040] = 0  # a poly-A stretch: the poly-A read's lanes have hits
     b = rng.integers(0, 4, 20_000).astype(np.uint8)
-    pack = Pack.empty()
-    pack.append("chrA", a)
-    pack.append("chrB", b)
+    packs = JPack.empty(), Pack.empty()  # (ma_tpu's, the port's)
+    for pack in packs:
+        pack.append("chrA", a)
+        pack.append("chrB", b)
     genome = np.concatenate([a, b])
     L = 256
     reads = []
@@ -58,7 +60,7 @@ def setup():
     for i, r in enumerate(reads):
         seqs[i, : len(r)] = r
         lens[i] = len(r)
-    return pack, seqs, lens
+    return packs, seqs, lens
 
 
 def _assert_batches_equal(j, t, fields=None):
@@ -70,8 +72,8 @@ def _assert_batches_equal(j, t, fields=None):
 
 
 def test_index_arrays_match(setup):
-    pack = setup[0]
-    ji = J.MinimizerIndex.build(pack, k=K, w=W)
+    jpack, pack = setup[0]
+    ji = J.MinimizerIndex.build(jpack, k=K, w=W)
     ti = T.MinimizerIndex.build(pack, k=K, w=W)
     for f in ("hash_sorted", "pos", "strand"):
         assert getattr(ji, f).dtype == getattr(ti, f).dtype, f
@@ -84,7 +86,7 @@ def test_index_arrays_match(setup):
 
 
 def test_index_store_load_roundtrip(setup, tmp_path):
-    ti = T.MinimizerIndex.build(setup[0], k=K, w=W)
+    ti = T.MinimizerIndex.build(setup[0][1], k=K, w=W)
     prefix = str(tmp_path / "g")
     ti.store(prefix)
     assert T.MinimizerIndex.exists(prefix)
@@ -106,12 +108,12 @@ def test_sketch_matches(setup):
 def test_seed_batch_matches(setup, max_seeds):
     """minimizer_seeding -> seed_lump -> min_length; max_seeds=32 makes the
     repeat reads overflow their seed slots, the poly-A read its lanes."""
-    pack, seqs, lens = setup
+    (jpack, pack), seqs, lens = setup
     cs = np.asarray(pack.starts, np.int32)
     Lf = pack.unpacked_size_forward_strand
     kw = dict(k=K, w=W, max_occ=100, max_seeds=max_seeds, rectangular=True)
 
-    jdev = J.MinimizerIndex.build(pack, k=K, w=W).to_device()
+    jdev = J.MinimizerIndex.build(jpack, k=K, w=W).to_device()
     js = J.minimizer_seeding(jdev, jnp.asarray(seqs), jnp.asarray(lens), jnp.asarray(cs), Lf, **kw)
     tdev = T.MinimizerIndex.build(pack, k=K, w=W).to_device("cpu")
     ts = T.minimizer_seeding(tdev, torch.as_tensor(seqs), torch.as_tensor(lens),

@@ -16,12 +16,16 @@ import torch
 # intra-op thread each keeps torch's many small ops from contending
 torch.set_num_threads(1)
 
+# `fixture(pkg)` builds the pack and reads of package `pkg` (ma_tpu_torch or
+# ma_tpu) from the same numpy draws
 FIXTURE = """
+import importlib
 import numpy as np
-from ma_tpu.containers.nucseq import NucSeq, decode_seq, revcomp_codes
-from ma_tpu.containers.pack import Pack
 
-def fixture():
+def fixture(pkg="ma_tpu_torch"):
+    nucseq = importlib.import_module(pkg + ".containers.nucseq")
+    NucSeq, decode_seq, revcomp_codes = nucseq.NucSeq, nucseq.decode_seq, nucseq.revcomp_codes
+    Pack = importlib.import_module(pkg + ".containers.pack").Pack
     rng = np.random.default_rng(99)
     G = 60_000
     genome = rng.integers(0, 4, size=G).astype(np.uint8)
@@ -40,12 +44,13 @@ def fixture():
 """
 
 
-def _fixture():
+def _fixture(pkg="ma_tpu_torch"):
     """60 kbp random genome, 24 x 150 bp reads at 2% substitutions, half
-    reverse complemented (the fixture of tests/test_dp_fused.py)."""
+    reverse complemented (the fixture of tests/test_dp_fused.py), as objects
+    of package `pkg`."""
     scope: dict = {}
     exec(FIXTURE, scope)
-    return scope["fixture"]()
+    return scope["fixture"](pkg)
 
 
 def _port_sam(pack, reads):
@@ -72,7 +77,7 @@ def test_sam_identical_to_ma_tpu(port_sam, path, monkeypatch):
     if path == "fused_native":
         monkeypatch.setenv("MA_TPU_DP", "fused")
         monkeypatch.setenv("MA_TPU_FINISH", "native")
-    pack, reads = _fixture()
+    pack, reads = _fixture("ma_tpu")
     al = Aligner(pack, FMDIndex.build(pack))
     al.pset.set("Seeding Technique", "minimizers")
     out = io.StringIO()
@@ -100,6 +105,7 @@ def test_slice_imports_no_jax():
         al.align_to_sam(iter(reads), out, batch_size=24)
         assert out.getvalue().count("\\n") > len(reads)
         print("JAX_LOADED" if "jax" in sys.modules else "NO_JAX")
+        assert not [m for m in sys.modules if m == "ma_tpu" or m.startswith("ma_tpu.")]
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     env["OMP_NUM_THREADS"] = "1"

@@ -2,14 +2,12 @@
 repeat, with a repeat read and a poly-A read whose seed slots / minimizer
 lanes overflow and go through the overflow-rescue pass. SAM byte-identical
 to ma_tpu on both of its reference paths."""
+import importlib
 import io
 
 import numpy as np
 import pytest
 import torch
-
-from ma_tpu.containers.nucseq import NucSeq, decode_seq, revcomp_codes
-from ma_tpu.containers.pack import Pack
 
 
 # the suite runs several test processes side by side on the CPU; one
@@ -17,7 +15,12 @@ from ma_tpu.containers.pack import Pack
 torch.set_num_threads(1)
 
 
-def _fixture():
+def _fixture(pkg="ma_tpu_torch"):
+    """The pack and reads as objects of package `pkg` (ma_tpu_torch or
+    ma_tpu), from the same numpy draws."""
+    nucseq = importlib.import_module(pkg + ".containers.nucseq")
+    NucSeq, decode_seq, revcomp_codes = nucseq.NucSeq, nucseq.decode_seq, nucseq.revcomp_codes
+    Pack = importlib.import_module(pkg + ".containers.pack").Pack
     rng = np.random.default_rng(2024)
     a = rng.integers(0, 4, 40_000).astype(np.uint8)
     a[20_000:20_420] = np.tile(rng.integers(0, 4, 7), 60).astype(np.uint8)
@@ -73,7 +76,7 @@ def test_sam_identical_to_ma_tpu(port, path, monkeypatch):
     # a fresh compilation cache per run: ma_tpu's jitted device stage can
     # replay a program compiled for another run's index in this process
     jax.clear_caches()
-    pack, reads = _fixture()
+    pack, reads = _fixture("ma_tpu")
     al = Aligner(pack, FMDIndex.build(pack))
     al.pset.set("Seeding Technique", "minimizers")
     out = io.StringIO()
@@ -88,19 +91,18 @@ def test_fmd_rescue_sam_identical_to_ma_tpu(preset, monkeypatch):
     overflow re-align through the cap_boost'ed FMD device stage, and the SAM
     equals ma_tpu's under MA_TPU_DP=fused MA_TPU_FINISH=native."""
     jax = pytest.importorskip("jax")
-    from ma_tpu.config.parameters import ParameterSetManager
-    from ma_tpu.index.fmd_index import FMDIndex
+    from ma_tpu.index.fmd_index import FMDIndex as JFMDIndex
     from ma_tpu.pipeline.aligner import Aligner as JAligner
+    from ma_tpu_torch.index.fmd_index import FMDIndex
     from ma_tpu_torch.pipeline.aligner import Aligner
 
-    def params():
-        mgr = ParameterSetManager()
+    def params(pkg):
+        mgr = importlib.import_module(pkg + ".config.parameters").ParameterSetManager()
         mgr.set_selected(preset)
         return mgr
 
     pack, reads = _fixture()
-    fmd = FMDIndex.build(pack)
-    al = Aligner(pack, params(), device="cpu", fmd=fmd)
+    al = Aligner(pack, params("ma_tpu_torch"), device="cpu", fmd=FMDIndex.build(pack))
     port = io.StringIO()
     al.align_to_sam(iter(reads), port, batch_size=32, cmd="ma_tpu")
     assert al.n_overflow_reads >= 1 and al.n_rescued_reads == al.n_overflow_reads
@@ -109,9 +111,10 @@ def test_fmd_rescue_sam_identical_to_ma_tpu(preset, monkeypatch):
     monkeypatch.setenv("MA_TPU_FINISH", "native")
     jax.clear_caches()
     try:
-        jal = JAligner(pack, fmd, params())
+        jpack, jreads = _fixture("ma_tpu")
+        jal = JAligner(jpack, JFMDIndex.build(jpack), params("ma_tpu"))
         want = io.StringIO()
-        jal.align_to_sam(iter(reads), want, batch_size=32)
+        jal.align_to_sam(iter(jreads), want, batch_size=32)
     finally:
         jax.clear_caches()
     assert jal.n_rescued_reads == al.n_rescued_reads

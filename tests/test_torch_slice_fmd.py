@@ -5,6 +5,7 @@ maxSpan (the Default preset), SMEMs (Illumina) and MEMs, each with
 MA_TPU_DP_V2 unset and set to 1 on both sides (ma_tpu then runs its fused
 DP as _kernel_v2, the port as C's plain version on the CPU); and the FMD
 path imports no jax."""
+import importlib
 import io
 import os
 import subprocess
@@ -24,9 +25,8 @@ torch.set_num_threads(1)
 CASES = {"maxSpan": ("Default", None), "SMEMs": ("Illumina", None), "MEMs": ("Default", "MEMs")}
 
 
-def _params(technique):
-    from ma_tpu.config.parameters import ParameterSetManager
-
+def _params(technique, pkg="ma_tpu_torch"):
+    ParameterSetManager = importlib.import_module(pkg + ".config.parameters").ParameterSetManager
     preset, override = CASES[technique]
     mgr = ParameterSetManager()
     mgr.set_selected(preset)
@@ -39,7 +39,7 @@ def _params(technique):
 @pytest.fixture(scope="module")
 def port_sams():
     """The port's SAM per (technique, MA_TPU_DP_V2), with one FMD index."""
-    from ma_tpu.index.fmd_index import FMDIndex
+    from ma_tpu_torch.index.fmd_index import FMDIndex
     from ma_tpu_torch.pipeline.aligner import Aligner
 
     pack, reads = _fixture()
@@ -84,8 +84,8 @@ def test_sam_identical_to_ma_tpu(port_sams, technique, v2, monkeypatch):
     # ma_tpu reads MA_TPU_DP / MA_TPU_DP_V2 while tracing: fresh caches
     jax.clear_caches()
     try:
-        pack, reads = _fixture()
-        al = Aligner(pack, FMDIndex.build(pack), _params(technique))
+        pack, reads = _fixture("ma_tpu")
+        al = Aligner(pack, FMDIndex.build(pack), _params(technique, "ma_tpu"))
         out = io.StringIO()
         al.align_to_sam(iter(reads), out, batch_size=24)
     finally:
@@ -107,7 +107,7 @@ def test_fmd_slice_imports_no_jax():
             print("JAX_AT_START")
             raise SystemExit(0)
         import io
-        from ma_tpu.config.parameters import ParameterSetManager
+        from ma_tpu_torch.config.parameters import ParameterSetManager
         from ma_tpu_torch.pipeline.aligner import Aligner
     """) + FIXTURE + textwrap.dedent("""
         pack, reads = fixture()
@@ -119,6 +119,7 @@ def test_fmd_slice_imports_no_jax():
             al.align_to_sam(iter(reads[:8]), out, batch_size=8)
             assert out.getvalue().count("\\n") > 8
         print("JAX_LOADED" if "jax" in sys.modules else "NO_JAX")
+        assert not [m for m in sys.modules if m == "ma_tpu" or m.startswith("ma_tpu.")]
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     env["OMP_NUM_THREADS"] = "1"
