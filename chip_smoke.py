@@ -11,7 +11,10 @@ Phases (any failure raises and exits non-zero before the last line):
      ma_tpu_torch/_build/;
   3. kernels A, B, C, C': each against its plain PyTorch version on the
      same CUDA inputs at main-path shapes (exact equality), with both times
-     (CUDA events) and the bound (below); B sorts and sweeps unsorted dense
+     (CUDA events) and the bound (below); A on the short path's first
+     batch (S = 256, B = 4096, K = 32), with a second bound for the bytes
+     its data needs (the first min(n, S) candidate records of each read);
+     B sorts and sweeps unsorted dense
      rows at R = 65,536, M = 64 and R = 512, M = 2048, and the short-read
      path's own first sweep of a batch, its plain version being the
      stable sort plus the plain sweep; C' (the DP kernel MA_TPU_DP_V2=1
@@ -45,7 +48,9 @@ Phases (any failure raises and exits non-zero before the last line):
      over a random 10 Mbp genome, 1% substitutions, 2% insertions, 2%
      deletions, odd reads reverse complemented, default_rng(4242)) with a
      200 bp inverted stretch planted in the middle of every fourth read,
-     PacBio preset, minimizers, "Detect Small Inversions" on: reads/s and
+     PacBio preset, minimizers, "Detect Small Inversions" on: kernel A on
+     the first batch's table (S = 8,192, B = 256; record "soc_sweep_long",
+     the plain version timed once), then reads/s and
      Mbases/s (median of 3 passes after a warm-up), placement (primary
      records within 200 bp of the simulated start, must be >= 98%),
      inversion windows and records, host-clock stages, and each kernel's
@@ -54,7 +59,12 @@ Phases (any failure raises and exits non-zero before the last line):
   8. long-read overflow rescue: 5 kb and 10 kb reads across a tandem repeat
      overflow their SoC windows; the rescue's stage sweeps rows of 4,096 and
      8,192 seeds through kernel B, held against its plain version there, and
-     each read's primary record must overlap the interval it came from.
+     each read's primary record must overlap the interval it came from;
+  9. wide fused problems: 40 reads of 500 bp ending in 256-base extensions,
+     Bandwidth for Extensions 768 and Padding 1,100, so the Python NW path's
+     fused bucket runs 1,152 columns wide: with MA_TPU_DP_V2 unset, C' must
+     launch past 1,024 columns (its per (M, N, mode) tally), and the SAM
+     must equal the CPU port's.
 
 The bound of a kernel (`bound_ms`) is the larger of the bytes it must move
 (each input read once, each output written once) over the card's memory rate
@@ -67,7 +77,8 @@ so `library_ms` is null.
 
 The line before the last is the kernels' JSON record (each kernel's
 launches summed over the counted main-path passes of phases 5-7, each read
-with the counts set to 0 just before it); the last line is
+with the counts set to 0 just before it; "soc_sweep_long", A's second timed
+case, with the long passes' launches of A); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Neither JAX nor any module of the JAX package ma_tpu is imported (checked at
 the end).
@@ -195,6 +206,25 @@ def time_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Mean device time of one fn() call: `calls` calls captured in one CUDA
+    graph, replayed `reps` times between CUDA events. Where a call's host
+    work (checks, allocations, the launch) outlasts its kernels, time_ms
+    measures the host; the replay leaves only the device's work."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return time_ms(graph.replay, reps) / calls
+
+
 def max_abs_err(a, b) -> int:
     """Largest |a - b| over matching integer/bool outputs (0 = equal)."""
     err = 0
@@ -241,6 +271,44 @@ def soc_inputs(aligner, reads, dev):
         cfg.fixed_soc_width, cfg.rectangular, _soc_min_score(cfg, lens_d, 2 * L),
     )
     return cand, sd.n_seeds.contiguous(), min_score, cfg.max_socs_collect
+
+
+def soc_case(name: str, cand, n, min_score, K: int, records, roof, plain_reps: int) -> None:
+    """Kernel A against its plain version on one batch's table, timed from
+    a CUDA graph (`ms`) and called one by one (`eager_ms`), with two
+    bounds: the whole [S, B, 7] table (the record's earlier bound, kept
+    as `table_bound_ms`) and the bytes this batch's data needs (`bound_ms`:
+    the first min(n, S) records of each read, n and min_score, the
+    outputs)."""
+    import torch
+
+    from ma_tpu_torch.ops.soc_cuda import soc_sweep, soc_sweep_plain
+
+    S, B, _ = cand.shape
+    got = soc_sweep(cand, n, min_score, K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = soc_sweep_plain(cand, n, min_score, K)
+    torch.cuda.synchronize()
+    first_plain_s = time.perf_counter() - t0
+    err = max_abs_err(got, ref)
+    eager_ms = time_ms(lambda: soc_sweep(cand, n, min_score, K), 20)
+    ms = graph_ms(lambda: soc_sweep(cand, n, min_score, K))
+    pms = (time_ms(lambda: soc_sweep_plain(cand, n, min_score, K), plain_reps) if plain_reps
+           else first_plain_s * 1e3)
+    table = roof.bound(nbytes(cand, n, min_score) + nbytes(*got), 0)
+    read = int(n.clamp(0, S).sum())
+    bd = roof.bound(28 * read + 8 * B + B * K * 32 + 5 * B, 0)
+    print(f"kernel {name}: cand {tuple(cand.shape)} K={K} candidate records read {read} "
+          f"(longest read {int(n.max())}), stack overflows {int(got[2].sum())} max_abs_err={err} "
+          f"kernel {ms:.4f} ms (graph replay; {eager_ms:.4f} ms called one by one) "
+          f"plain {pms:.3f} ms; bound, whole table {table['bound_ms']:.4f} "
+          f"ms ({table['bound_ms'] / ms:.1%} of the time), the bytes its data needs "
+          f"{bd['bound_ms']:.5f} ms ({bd['bound_ms'] / ms:.1%})", flush=True)
+    if err:
+        raise AssertionError(f"{name} differs from its plain version: {err}")
+    records[name] = dict(max_abs_err=err, ms=ms, plain_ms=pms, **bd,
+                         table_bound_ms=table["bound_ms"], eager_ms=eager_ms)
 
 
 def linesweep_inputs(rng, R: int, M: int, dev):
@@ -321,23 +389,10 @@ def kernel_phase(aligner, reads, dev, records, roof):
         banded_align_runs, banded_align_runs_plain, banded_align_runs_v2,
     )
     from ma_tpu_torch.ops.harmonize_cuda import linesweep, linesweep_plain
-    from ma_tpu_torch.ops.soc_cuda import soc_sweep, soc_sweep_plain
 
     rng = np.random.default_rng(7)
-    # ---- A: SoC sweep at S = 256, B = 4096, K = 32
-    cand, n, min_score, K = soc_inputs(aligner, reads, dev)
-    got = soc_sweep(cand, n, min_score, K)
-    ref = soc_sweep_plain(cand, n, min_score, K)
-    err = max_abs_err(got, ref)
-    ms = time_ms(lambda: soc_sweep(cand, n, min_score, K), 10)
-    pms = time_ms(lambda: soc_sweep_plain(cand, n, min_score, K), 1)
-    bd = roof.bound(nbytes(cand, n, min_score) + nbytes(*got), 0)
-    print(f"kernel soc_sweep: cand {tuple(cand.shape)} K={K} max_abs_err={err} "
-          f"kernel {ms:.3f} ms plain {pms:.3f} ms bound {bd['bound_ms']:.4f} ms "
-          f"({bd['bound_by']})", flush=True)
-    if err:
-        raise AssertionError(f"soc_sweep differs from its plain version: {err}")
-    records["soc_sweep"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, **bd)
+    # ---- A: SoC sweep at S = 256, B = 4096, K = 32 (the short path's first batch)
+    soc_case("soc_sweep", *soc_inputs(aligner, reads, dev), records, roof, plain_reps=1)
 
     # ---- B: sort + line sweep on dense rows (90% valid) at the short-read
     # path's shape, R = 4096 reads x 8 SoCs x 2 strands, M = 64 (the record,
@@ -609,10 +664,13 @@ def long_placement(sam: str, starts: np.ndarray):
     return ok, n_prim
 
 
-def long_phase(dev, pack, reads, starts, check_reads: int = LONG_CHECK_READS) -> dict:
-    """The long-read main path on `dev`: warm-up, PASSES counted passes, one
-    pass under the stage timer, and the first check_reads reads against the
-    CPU port. Returns each kernel's launches in the counted passes."""
+def long_phase(dev, pack, reads, starts, records, roof,
+               check_reads: int = LONG_CHECK_READS) -> dict:
+    """The long-read main path on `dev`: warm-up, kernel A on the first
+    batch's candidate table (record "soc_sweep_long"), PASSES counted
+    passes, one pass under the stage timer, and the first check_reads reads
+    against the CPU port. Returns each kernel's launches in the counted
+    passes."""
     import torch
 
     from ma_tpu_torch.utils.profile import AnalyzeRuntimes
@@ -632,6 +690,9 @@ def long_phase(dev, pack, reads, starts, check_reads: int = LONG_CHECK_READS) ->
     t0 = time.perf_counter()
     run(aligner, reads[:8])
     print(f"long warm-up: {time.perf_counter() - t0:.1f} s", flush=True)
+    # ---- A on the long path's first batch: S = max_seeds = 8192, B = 256
+    soc_case("soc_sweep_long", *soc_inputs(aligner, reads[:LONG_BATCH], dev), records, roof,
+             plain_reps=0)
     reset_launches()
     aligner.n_inversion_windows = aligner.n_inversions = 0
     walls, sam = [], ""
@@ -652,7 +713,9 @@ def long_phase(dev, pack, reads, starts, check_reads: int = LONG_CHECK_READS) ->
           f"{aligner.n_inversions // PASSES}, supplementary MAPQ-0 records {inv_recs}; "
           f"overflow reads {aligner.n_overflow_reads}, rescued {aligner.n_rescued_reads}",
           flush=True)
-    print(f"long launches: {json.dumps(launches)}", flush=True)
+    print(f"long launches: {json.dumps(launches)}; dp_fused per (M, N, mode): "
+          f"{sorted(kernels.DP_FUSED.tally.items())}; dp_fused_v2: "
+          f"{sorted(kernels.DP_FUSED_V2.tally.items())}", flush=True)
     path = {k: v for k, v in launches.items() if k != "dp_fused_v2"}
     if min(path.values()) == 0 or launches["dp_fused_v2"]:
         raise AssertionError(f"the long-read path did not run kernels A, B, C, D and the "
@@ -683,6 +746,72 @@ def long_phase(dev, pack, reads, starts, check_reads: int = LONG_CHECK_READS) ->
     if not inv:
         raise AssertionError("the long-read cross-check holds no inversion record")
     return launches
+
+
+def wide_workload():
+    """tests/test_torch_long.py's wide fixture, all 40 draws: a 30 kbp random
+    genome and 500 bp reads whose first 248-256 bases are random, so each
+    ends in a left extension of about 256 query bases. Returns (pack,
+    reads)."""
+    from ma_tpu_torch.containers.nucseq import NucSeq
+    from ma_tpu_torch.containers.pack import Pack
+
+    rng = np.random.default_rng(6)
+    genome = rng.integers(0, 4, 30_000).astype(np.uint8)
+    pack = Pack.empty()
+    pack.append("chrW", genome)
+    reads = []
+    for i in range(40):
+        p = int(rng.integers(2_000, 28_000))
+        codes = genome[p : p + 500].copy()
+        k = 256 - int(rng.integers(0, 8))
+        codes[:k] = rng.integers(0, 4, k)
+        reads.append(NucSeq(codes, name=f"w{i}_{p}"))
+    return pack, reads
+
+
+def wide_phase(dev) -> None:
+    """Fused problems wider than kernel C's 1,024 columns on the card:
+    minimizers with Bandwidth for Extensions 768 and Padding 1,100, so a
+    256-base extension spans 1,025 reference columns and the Python NW
+    path's fused bucket runs 1,152 wide. With MA_TPU_DP_V2 unset, C' must
+    launch at some N > 1,024, and the SAM must equal the CPU port's."""
+    import os
+
+    import torch
+
+    from ma_tpu_torch import kernels
+    from ma_tpu_torch.config.parameters import ParameterSetManager
+    from ma_tpu_torch.pipeline.aligner import Aligner
+
+    if os.environ.get("MA_TPU_DP_V2"):
+        raise AssertionError("the wide phase runs with MA_TPU_DP_V2 unset")
+    pack, reads = wide_workload()
+
+    def sam(device):
+        mgr = ParameterSetManager()
+        mgr.selected.set("Seeding Technique", "minimizers")
+        mgr.selected.set("Bandwidth for Extensions", 768)
+        mgr.selected.set("Padding", 1100)
+        buf = io.StringIO()
+        Aligner(pack, mgr, device=device).align_to_sam(iter(reads), buf, batch_size=64)
+        return buf.getvalue()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    gpu_sam = sam(dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    wide = {k: v for k, v in kernels.DP_FUSED_V2.tally.items() if k[1] > 1024}
+    c_widths = sorted({k[1] for k in kernels.DP_FUSED.tally})
+    cpu_sam = sam("cpu")
+    print(f"wide: {len(reads)} reads x 500 bp, {wall:.1f} s on the card; dp_fused_v2 per (M, N, "
+          f"mode) past 1,024 columns: {wide}; dp_fused widths {c_widths}; SAM "
+          f"{len(cpu_sam)} bytes, identical to the CPU port's: {gpu_sam == cpu_sam}", flush=True)
+    if not wide or max(c_widths, default=0) > 1024:
+        raise AssertionError("the wide phase did not launch C' past 1,024 columns")
+    if gpu_sam != cpu_sam:
+        raise AssertionError(f"wide: GPU and CPU SAM differ at line {first_diff(gpu_sam, cpu_sam)}")
 
 
 def repeat_workload(read_len: int):
@@ -976,6 +1105,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also run one pass under torch.profiler")
+    ap.add_argument("--soc-only", action="store_true",
+                    help="only kernel A's two timed cases, printed as JSON (run a copy of "
+                         "this script from another tree's root to compare two trees' A)")
     args = ap.parse_args()
 
     import torch
@@ -1003,6 +1135,19 @@ def main() -> int:
     for line in so.with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line:
             print("ptxas:", line.strip())
+
+    if args.soc_only:
+        records: dict = {}
+        pack, reads, _ = simulate(GENOME_BP, BATCH, READ_LEN)  # the first batch of N_READS
+        aligner = Aligner(pack, device=dev)
+        aligner.pset.set("Seeding Technique", "minimizers")
+        soc_case("soc_sweep", *soc_inputs(aligner, reads, dev), records, roof, plain_reps=1)
+        pack_l, reads_l, _ = simulate_long()
+        soc_case("soc_sweep_long", *soc_inputs(Aligner(pack_l, long_params(), device=dev),
+                                               reads_l[:LONG_BATCH], dev),
+                 records, roof, plain_reps=0)
+        print(json.dumps(records))
+        return 0
 
     t0 = time.perf_counter()
     pack, reads, starts = simulate(GENOME_BP, N_READS, READ_LEN)
@@ -1086,9 +1231,11 @@ def main() -> int:
     print(f"long workload: genome {LONG_GENOME_BP} bp, {len(reads_l)} reads x {LONG_LEN} bp, "
           f"inversions of {INV_LEN} bp in every {INV_EVERY}th read "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    for name, v in long_phase(dev, pack_l, reads_l, starts_l).items():
+    long_launches = long_phase(dev, pack_l, reads_l, starts_l, records, roof)
+    for name, v in long_launches.items():
         total[name] += v
     rescue_phase(dev)
+    wide_phase(dev)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     reference = sorted(m for m in sys.modules if m == "ma_tpu" or m.startswith("ma_tpu."))
@@ -1102,6 +1249,10 @@ def main() -> int:
     for k in kernels.KERNELS:
         out.append(dict(name=k.name, route="cuda", source=k.source, replaces=k.replaces,
                         launches=total[k.name], **records[k.name]))
+        if k is kernels.SOC_SWEEP:  # A's second timed case: the long pass's table
+            out.append(dict(name="soc_sweep_long", route="cuda", source=k.source,
+                            replaces=k.replaces, launches=long_launches[k.name],
+                            **records["soc_sweep_long"]))
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

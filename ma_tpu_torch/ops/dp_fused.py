@@ -16,11 +16,14 @@ The plain version is `dp_rows.banded_align_rows` + `traceback_device_rows`
 + `pack_runs`. Where lastrow_max is NEG_INF, lastrow_arg is 0 here and on
 the card (the Pallas kernel leaves the first lane of its first tile there).
 
-C and C' share this contract, so they share the plain version. As in
-ma_tpu, `banded_align_runs` takes C' when MA_TPU_DP_V2=1 (read at each
-call) and C' tiles the row in at most 8 static tiles (`use_v2`); ma_tpu's
-further term PB2 >= 32 sizes TPU VMEM and holds for every shape
-(`_pick_pb_v2` never goes below 32), so it is left out.
+C and C' share this contract, so they share the plain version. On the
+card `banded_align_runs` picks the kernel by width (`fused_kernel`): C
+where it takes N (up to 1,024 columns, as its scratch-size query says),
+C' up to 4,096, and for wider global problems without z-drop kernel D +
+the traceback kernel. As in ma_tpu, MA_TPU_DP_V2=1 (read at each call)
+also sends the widths C takes to C', whose row fits in at most 8 static
+tiles (`use_v2`); ma_tpu's further term PB2 >= 32 sizes TPU VMEM and holds
+for every shape (`_pick_pb_v2` never goes below 32), so it is left out.
 """
 from __future__ import annotations
 
@@ -35,41 +38,44 @@ from ma_tpu_torch.ops.dp_rows import banded_align_rows, traceback_device_rows
 MAX_RUNS = 32
 
 
-def _emit(runs, cnt, last, over, op, ln, mask):
-    """Append (or merge into the previous) run for the rows in `mask`."""
-    P, R = runs.shape
-    rows = torch.arange(P, device=runs.device)
-    mask = mask & (ln > 0)
-    merge = mask & (last == op) & (cnt > 0)
-    new = mask & ~merge
-    ovf = new & (cnt >= R)
-    new = new & ~ovf
-    prev = (cnt - 1).clamp(min=0).long()
-    runs[rows, prev] += torch.where(merge, ln * 4, 0).to(torch.int32)
-    slot = cnt.clamp(max=R - 1).long()
-    runs[rows, slot] = torch.where(new, ln * 4 + op, runs[rows, slot]).to(torch.int32)
-    cnt = cnt + new.to(torch.int32)
-    last = torch.where(mask & ~ovf, op, last).to(torch.int32)
-    return cnt, last, over | ovf
-
-
 def pack_runs(ops, n_ops, fi, fj, started, R: int):
     """Merge a back-to-front op stream (then the leading I / D residuals)
-    into packed runs, exactly as the fused kernel emits them.
-    Returns (runs [P, R] int32, n_runs [P] int32, overflow [P] bool)."""
-    P = ops.shape[0]
+    into packed runs, exactly as the fused kernel emits them: adjacent equal
+    ops merge into one run; a run that does not fit in R sets the overflow
+    flag and is dropped, but later ops equal to the last stored run's op
+    still merge into it. Returns (runs [P, R] int32, n_runs [P] int32,
+    overflow [P] bool)."""
+    P, S = ops.shape
     dev = ops.device
-    runs = torch.zeros((P, R), dtype=torch.int32, device=dev)
-    cnt = torch.zeros(P, dtype=torch.int32, device=dev)
-    last = torch.full((P,), -1, dtype=torch.int32, device=dev)
-    over = torch.zeros(P, dtype=torch.bool, device=dev)
-    one = torch.ones(P, dtype=torch.int32, device=dev)
-    for k in range(int(n_ops.max()) if P else 0):
-        op = ops[:, k].to(torch.int32)
-        cnt, last, over = _emit(runs, cnt, last, over, op, one, k < n_ops)
-    cnt, last, over = _emit(runs, cnt, last, over, OP_I, fi + 1, started & (fi >= 0))
-    cnt, last, over = _emit(runs, cnt, last, over, OP_D, fj + 1, started & (fj >= 0))
-    return runs, cnt, over
+    col = torch.arange(S + 2, device=dev)[None, :]
+    started = started.bool()
+    # the stream: the ops (length 1 each), then fi + 1 inserts and fj + 1 deletions
+    op = torch.cat([ops.long(), torch.full((P, 1), OP_I, device=dev),
+                    torch.full((P, 1), OP_D, device=dev)], 1)
+    ln = torch.cat([torch.ones((P, S), dtype=torch.long, device=dev),
+                    (fi.long() + 1)[:, None], (fj.long() + 1)[:, None]], 1)
+    valid = torch.cat([col[:, :S] < n_ops.long()[:, None], (started & (fi >= 0))[:, None],
+                       (started & (fj >= 0))[:, None]], 1)
+    # each item's op carried over the invalid items after it; a run starts
+    # at a valid item whose op differs from the last valid item's
+    last = torch.where(valid, col, -1).cummax(1).values
+    seen = last >= 0
+    fop = torch.where(seen, op.gather(1, last.clamp(min=0)), -1)
+    prev = torch.cat([torch.full((P, 1), -1, device=dev), fop[:, :-1]], 1)
+    start = valid & (fop != prev)
+    rid = start.long().cumsum(1) - 1
+    n_rle = start.sum(1)
+    run_op = torch.zeros((P, R + 1), dtype=torch.long, device=dev)
+    run_op.scatter_(1, torch.where(start & (rid < R), rid, R), torch.where(start, op, 0))
+    # items of runs past R merge into run R - 1 where their op is its op
+    tail = valid & (rid >= R) & (op == run_op[:, R - 1 : R])
+    dest = torch.where(valid & (rid < R), rid, torch.where(tail, R - 1, R))
+    run_len = torch.zeros((P, R + 1), dtype=torch.long, device=dev)
+    run_len.scatter_add_(1, dest, torch.where(valid, ln, 0))
+    n_runs = n_rle.clamp(max=R)
+    kept = torch.arange(R, device=dev)[None, :] < n_runs[:, None]
+    runs = torch.where(kept, run_len[:, :R] * 4 + run_op[:, :R], 0).to(torch.int32)
+    return runs, n_runs.to(torch.int32), n_rle > R
 
 
 def banded_align_runs_plain(q, t, qlen, tlen, band, *, M: int, N: int,
@@ -151,17 +157,68 @@ def _scores(params: DPParams):
             params.gap_open2, params.gap_extend2)
 
 
+V2_MAX_N = 4096  # C' columns: 256 threads x 16
+
+
+def fused_kernel(N: int, c_fits: bool, is_global: bool, zdrop: int) -> str:
+    """The kernel banded_align_runs launches for CUDA tensors of width N:
+    "C" where kernel C takes the width (`c_fits`, from its scratch-size
+    query) and MA_TPU_DP_V2 does not ask for C' (`use_v2`); "C'" otherwise
+    up to V2_MAX_N columns. Past that, global problems without z-drop (the
+    planner's gaps under a Maximal Gap Size above V2_MAX_N) go to "D":
+    kernel D + the traceback kernel, whose end-cell score and path are the
+    fused kernels'. An extension past V2_MAX_N raises ValueError: D checks
+    z-drop per anti-diagonal, the fused kernels per row."""
+    if N <= V2_MAX_N:
+        return "C'" if use_v2(N) or not c_fits else "C"
+    if is_global and zdrop < 0:
+        return "D"
+    raise ValueError(f"dp_fused: N={N} exceeds C' ({V2_MAX_N} columns), and kernel D "
+                     f"gives the fused result only for global problems without z-drop")
+
+
+def global_runs_through_d(q, t, qlen, tlen, band, *, params: DPParams = DPParams(),
+                          R: int = MAX_RUNS):
+    """The fused contract for global problems without z-drop through the
+    direction-tensor DP (kernel D on CUDA tensors) and its traceback from
+    (qlen - 1, tlen - 1), the runs packed as the fused kernels pack them.
+    Problems go in groups whose [P, M + N - 1, M] direction bytes stay
+    within 1 GiB."""
+    from ma_tpu_torch.ops.dp import banded_align, traceback_device
+
+    P, M = q.shape
+    step = max(1, 2**30 // (M * (M + t.shape[1])))
+    runs, metas = [], []
+    for s in range(0, P, step):
+        part = slice(s, s + step)
+        res = banded_align(q[part], t[part], qlen[part], tlen[part], band[part], params, -1,
+                           True)
+        si = qlen[part].to(torch.int32) - 1
+        ops, n_ops, fi, fj = traceback_device(res.dirs, si, tlen[part].to(torch.int32) - 1)
+        r, n_runs, over = pack_runs(ops, n_ops, fi, fj, si >= 0, R)
+        minus = torch.full_like(si, -1)
+        runs.append(r)
+        metas.append(torch.stack([n_runs, res.score, minus, minus, torch.zeros_like(minus),
+                                  over.to(torch.int32), torch.full_like(minus, NEG_INF),
+                                  minus]).to(torch.int32))
+    if not runs:
+        return (torch.zeros((0, R), dtype=torch.int32, device=q.device),
+                torch.zeros((8, 0), dtype=torch.int32, device=q.device))
+    return torch.cat(runs), torch.cat(metas, 1)
+
+
 def banded_align_runs_v2(q, t, qlen, tlen, band, *, M: int, N: int,
                          params: DPParams = DPParams(), zdrop: int = -1,
                          is_global: bool = True, tb_last=None, R: int = MAX_RUNS):
-    """Kernel C' on CUDA tensors (N <= 4096), the plain version on CPU
-    tensors; the contract of banded_align_runs."""
+    """Kernel C' on CUDA tensors (N <= V2_MAX_N), the plain version on CPU
+    tensors; the contract of banded_align_runs. Launches are tallied per
+    (M, N, global or extension) with their problem counts."""
     if q.device.type == "cpu":
         return banded_align_runs_plain(q, t, qlen, tlen, band, M=M, N=N, params=params,
                                        zdrop=zdrop, is_global=is_global,
                                        tb_last=tb_last, R=R)
-    if N > 4096:
-        raise ValueError(f"dp_fused_v2: N={N} exceeds 256 threads x 16 columns (4096)")
+    if N > V2_MAX_N:
+        raise ValueError(f"dp_fused_v2: N={N} exceeds 256 threads x 16 columns ({V2_MAX_N})")
     q, t, meta_in, runs, meta = _operands(q, t, qlen, tlen, band, tb_last, M, N, R)
     P = q.shape[0]
     # direction rows streamed out by the kernel for its own traceback, each
@@ -170,7 +227,8 @@ def banded_align_runs_v2(q, t, qlen, tlen, band, *, M: int, N: int,
     dirs = torch.empty((P, M, ldn), dtype=torch.uint8, device=q.device)
     if P:
         kernels.DP_FUSED_V2.launch(q, t, meta_in, runs, meta, dirs, P, M, N, ldn, R,
-                                   *_scores(params), zdrop, int(is_global))
+                                   *_scores(params), zdrop, int(is_global),
+                                   shape=(M, N, "global" if is_global else "extension"), items=P)
     return runs, meta
 
 
@@ -178,18 +236,24 @@ def banded_align_runs(q, t, qlen, tlen, band, *, M: int, N: int,
                       params: DPParams = DPParams(), zdrop: int = -1,
                       is_global: bool = True, tb_last=None, R: int = MAX_RUNS):
     """Fused DP + traceback on the tensors' device: the plain version for CPU
-    tensors; for CUDA tensors kernel C', where `use_v2(N)`, else kernel C.
-    q [P, M], t [P, N] int32 codes; qlen/tlen/band/tb_last [P]. Returns
-    (runs [P, R], meta [8, P]). Kernel C's launches are tallied per (M, N,
-    global or extension) with their problem counts (`kernels.DP_FUSED.tally`)."""
-    if q.device.type == "cpu" or use_v2(N):
+    tensors; for CUDA tensors the kernel `fused_kernel` names (C, C', or D +
+    the traceback kernel). q [P, M], t [P, N] int32 codes; qlen/tlen/band/
+    tb_last [P]. Returns (runs [P, R], meta [8, P]). C's and C''s launches
+    are tallied per (M, N, global or extension) with their problem counts
+    (`kernels.DP_FUSED.tally`, `kernels.DP_FUSED_V2.tally`)."""
+    if q.device.type == "cpu":
+        return banded_align_runs_plain(q, t, qlen, tlen, band, M=M, N=N, params=params,
+                                       zdrop=zdrop, is_global=is_global, tb_last=tb_last, R=R)
+    # bytes per problem of the direction rows kernel C streams out for its own
+    # traceback where the plane is too large for shared memory, else 0; < 0
+    # where C does not take the width
+    scratch = kernels.query("ma_dp_fused_scratch_bytes", M, N)
+    route = fused_kernel(N, scratch >= 0, is_global, zdrop)
+    if route == "C'":
         return banded_align_runs_v2(q, t, qlen, tlen, band, M=M, N=N, params=params,
                                     zdrop=zdrop, is_global=is_global, tb_last=tb_last, R=R)
-    # bytes per problem of the direction rows kernel C streams out for its own
-    # traceback where the plane is too large for shared memory, else 0
-    scratch = kernels.query("ma_dp_fused_scratch_bytes", M, N)
-    if scratch < 0:
-        raise ValueError(f"dp_fused: N={N} exceeds 256 threads x 4 columns (1024)")
+    if route == "D":
+        return global_runs_through_d(q, t, qlen, tlen, band, params=params, R=R)
     q, t, meta_in, runs, meta = _operands(q, t, qlen, tlen, band, tb_last, M, N, R)
     P = q.shape[0]
     dirs = torch.empty(P * scratch, dtype=torch.uint8, device=q.device)

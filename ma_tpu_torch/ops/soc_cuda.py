@@ -24,7 +24,9 @@ def soc_sweep_plain(cand_all: torch.Tensor, n: torch.Tensor,
     """cand_all [S, B, 7] int32 (sl, sa, we, pexs, aexs, pend, aend per
     candidate), n [B], min_score [B] -> (stack [B, K, 8] int32, sp [B] int32,
     overflow [B] bool). Stack planes: start, end, len, amb, pexs, pend,
-    aexs, aend. All reads advance in lockstep over the candidate index."""
+    aexs, aend. Slots past sp keep what a dropped strip left there (zeros
+    where nothing was ever pushed). All reads advance in lockstep over the
+    candidate index."""
     S, B, _ = cand_all.shape
     dev = cand_all.device
     st = torch.zeros((B, K, 8), dtype=torch.int32, device=dev)
@@ -96,6 +98,9 @@ def soc_sweep(cand_all: torch.Tensor, n: torch.Tensor, min_score: torch.Tensor,
     kernels.check(cand_all, "cand_all", torch.int32, (S, B, 7))
     kernels.check(n, "n", torch.int32, (B,))
     kernels.check(min_score, "min_score", torch.int32, (B,))
+    # the kernel keeps each read's [K, 8] stack in shared memory
+    if kernels.query("ma_soc_sweep_smem_bytes", K) < 0:
+        raise ValueError(f"soc_sweep: K={K} stack slots do not fit in a block's shared memory")
     dev = cand_all.device
     stack = torch.empty((B, K, 8), dtype=torch.int32, device=dev)
     sp = torch.empty(B, dtype=torch.int32, device=dev)

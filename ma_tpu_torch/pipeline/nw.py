@@ -9,10 +9,11 @@ descriptors into the device genome text and read batch:
 * larger gaps -> dual z-drop extension meeting in the middle
 * read ends -> one-sided z-drop extension (band Bandwidth for Extensions)
 All problems of a read batch are bucketed by shape and solved in a few
-device calls: problems that fit the fused buckets go to kernel C (runs
-traced back on the device), one-sided extensions with longer queries to
-the chunked z-drop extension over kernel C, the rest to kernel D + the
-traceback kernel (ops/dp.py `_dp_tb_desc_runs`). Problems whose runs
+device calls: problems with queries of at most 256 go to the fused DP
+(runs traced back on the device; kernel C, or C' past 1,024 reference
+columns, ops/dp_fused.py `fused_kernel`), one-sided extensions with longer
+queries to the chunked z-drop extension over kernel C, the rest to kernel
+D + the traceback kernel (ops/dp.py `_dp_tb_desc_runs`). Problems whose runs
 overflow kernel C's run buffer are redone through kernel D. `assemble`
 turns the plan tokens and cigars into an Alignment on the host.
 
@@ -317,10 +318,11 @@ class NWAligner:
                     part = idxs[s : s + max_p]
                     width = N
                     if use_fused and N > self.N_LADDER_FUSED[-1]:
-                        # kernel C takes N <= 1024 (4 columns a thread): a fused
-                        # bucket past the fused ladder (an extension with
-                        # m = 256, n = 769) runs as wide as its longest
-                        # reference needs; no result depends on the width
+                        # a fused bucket past the fused ladder (an extension
+                        # with m = 256, n = 769) runs as wide as its longest
+                        # reference needs, so that up to 1,024 columns stay
+                        # on kernel C (banded_align_runs takes C' up to
+                        # 4,096); no result depends on the width
                         width = -(-max(self._problems[i].t_len for i in part) // 128) * 128
                     desc = torch.as_tensor(np.asarray(
                         [self._problems[i].desc() for i in part], np.int32).T.copy(),

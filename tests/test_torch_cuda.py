@@ -23,12 +23,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def test_soc_sweep_kernel(cuda):
-    from ma_tpu_torch.ops.soc_cuda import soc_sweep, soc_sweep_plain
-
-    rng = np.random.default_rng(0)
-    S, B, K = 64, 300, 8
-    # prefix sums along each read's candidates, windows ending ahead of them
+def _soc_candidates(rng, S, B):
+    """[S, B, 7] candidate tables as soc_candidates makes them: prefix sums
+    along each read's candidates, windows ending a few candidates ahead."""
     lens = rng.integers(0, 30, (B, S))
     amb = rng.integers(0, 3, (B, S))
     plen, pamb = np.cumsum(lens, 1), np.cumsum(amb, 1)
@@ -36,15 +33,43 @@ def test_soc_sweep_kernel(cuda):
     take = lambda a, i: np.take_along_axis(a, np.clip(i, 0, S - 1), 1) * (i >= 0)
     pex, aex = plen - lens, pamb - amb
     pend, aend = take(plen, we - 1), take(pamb, we - 1)
-    cand = np.stack([pend - pex, aend - aex, we, pex, aex, pend, aend], -1)
-    cand = torch.as_tensor(cand.transpose(1, 0, 2).copy(), dtype=torch.int32, device=cuda)
-    n = torch.as_tensor(rng.integers(0, S + 1, B), dtype=torch.int32, device=cuda)
-    ms = torch.as_tensor(rng.integers(0, 20, B), dtype=torch.int32, device=cuda)
+    return np.stack([pend - pex, aend - aex, we, pex, aex, pend, aend], -1).transpose(1, 0, 2)
+
+
+@pytest.mark.parametrize("S,B,K", [(64, 300, 8), (64, 301, 8), (256, 4096, 32), (8192, 256, 32)])
+def test_soc_sweep_kernel(cuda, S, B, K):
+    """Kernel A against its plain version: the short path's and the long
+    path's table shapes, K = 8 (stacks overflow), B = 301 (not a multiple
+    of the block's 4 reads); read 0 has no candidate, read 1 all S, read 2
+    every candidate below its min_score, read 3 a min_score of 0."""
+    from ma_tpu_torch import kernels
+    from ma_tpu_torch.ops.soc_cuda import soc_sweep, soc_sweep_plain
+
+    rng = np.random.default_rng(S + B + K)
+    cand = torch.as_tensor(_soc_candidates(rng, S, B).copy(), dtype=torch.int32, device=cuda)
+    n = rng.integers(0, S + 1, B)
+    n[:3] = 0, S, S
+    ms = rng.integers(0, 20, B)
+    ms[2], ms[3] = 1 << 30, 0
+    n = torch.as_tensor(n, dtype=torch.int32, device=cuda)
+    ms = torch.as_tensor(ms, dtype=torch.int32, device=cuda)
+    before = kernels.SOC_SWEEP.launches
     got = soc_sweep(cand, n, ms, K)
-    want = soc_sweep_plain(cand, n, ms, K)
     torch.cuda.synchronize()
+    assert kernels.SOC_SWEEP.launches == before + 1
+    want = soc_sweep_plain(cand, n, ms, K)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert bool(got[2].any())  # K = 8 slots overflow
+    assert int(want[1][0]) == 0 and int(want[1][2]) == 0 and int(want[1][1]) > 0
+    assert K != 8 or bool(want[2].any())  # K = 8 slots overflow
+
+
+def test_soc_sweep_refuses_k_past_shared_memory(cuda):
+    from ma_tpu_torch.ops.soc_cuda import soc_sweep
+
+    cand = torch.zeros((4, 8, 7), dtype=torch.int32, device=cuda)
+    n = torch.zeros(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="K=4096"):
+        soc_sweep(cand, n, n, 4096)
 
 
 @pytest.mark.parametrize("M", [64, 2048, 40, 100, 4096, 8192])
@@ -303,3 +328,53 @@ def test_kernels_count_launches(cuda):
     z = torch.zeros((4, 64), dtype=torch.int32, device=cuda)
     linesweep(z, z, z.float(), z.bool())
     assert kernels.LINESWEEP.launches == before + 1
+
+
+@pytest.mark.parametrize("N", [1152, 4096])
+@pytest.mark.parametrize("is_global", [True, False])
+def test_wide_fused_problems_take_c_prime(cuda, monkeypatch, N, is_global):
+    """Past kernel C's 1,024 columns banded_align_runs launches C' with
+    MA_TPU_DP_V2 unset, tallied per (M, N, mode), exact against the plain
+    version."""
+    from ma_tpu_torch import kernels
+    from ma_tpu_torch.ops.dp import DPParams
+    from ma_tpu_torch.ops.dp_fused import banded_align_runs, banded_align_runs_plain
+
+    monkeypatch.delenv("MA_TPU_DP_V2", raising=False)
+    args, tb = _dp_problems(np.random.default_rng(N + int(is_global)), 48, 256, N, is_global,
+                            cuda)
+    kw = dict(M=256, N=N, params=DPParams(), zdrop=-1 if is_global else 200,
+              is_global=is_global, tb_last=tb, R=96)
+    kernels.DP_FUSED.reset()
+    kernels.DP_FUSED_V2.reset()
+    got = banded_align_runs(*args, **kw)
+    torch.cuda.synchronize()
+    mode = "global" if is_global else "extension"
+    assert kernels.DP_FUSED_V2.tally == {(256, N, mode): (1, 48)}
+    assert kernels.DP_FUSED.launches == 0
+    want = banded_align_runs_plain(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_fused_problems_past_c_prime(cuda, monkeypatch):
+    """Past 4,096 columns: global problems without z-drop go through kernel D
+    and the traceback kernel, exact against the fused plain version;
+    extensions raise."""
+    from ma_tpu_torch import kernels
+    from ma_tpu_torch.ops.dp import DPParams
+    from ma_tpu_torch.ops.dp_fused import banded_align_runs, banded_align_runs_plain
+
+    monkeypatch.delenv("MA_TPU_DP_V2", raising=False)
+    N = 4224
+    args, tb = _dp_problems(np.random.default_rng(4), 24, 64, N, True, cuda)
+    kw = dict(M=64, N=N, params=DPParams(), zdrop=-1, is_global=True, R=32)
+    counts = lambda: [k.launches for k in kernels.KERNELS]  # noqa: E731
+    before = counts()
+    got = banded_align_runs(*args, **kw)
+    torch.cuda.synchronize()
+    grew = {k.name for k, a, b in zip(kernels.KERNELS, before, counts()) if b > a}
+    assert grew == {"dp_wavefront", "dp_traceback"}
+    want = banded_align_runs_plain(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="exceeds C'"):
+        banded_align_runs(*args, **dict(kw, zdrop=200, is_global=False, tb_last=tb))

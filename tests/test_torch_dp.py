@@ -315,3 +315,91 @@ def test_v2_selection_matches_ma_tpu(monkeypatch):
             want = flag == "1" and N % tj == 0 and N // tj <= 8 and JF._pick_pb_v2(256, N) >= 32
             assert TF.use_v2(N) == want, N
     assert all(TF.use_v2(N) for N in range(1, 20_000))  # the tile terms always hold
+
+
+@pytest.mark.parametrize("v2", ["0", "1"])
+@pytest.mark.parametrize("N", [1024, 1025, 4096, 4097])
+def test_fused_kernel_routing(monkeypatch, v2, N):
+    """The card's kernel by width: C up to its 1,024 columns (C' there
+    under MA_TPU_DP_V2=1), C' from 1,025 to 4,096 whatever the variable says,
+    past 4,096 kernel D + the traceback kernel for global problems without
+    z-drop; an extension there raises. `c_fits` stands for C's scratch-size
+    query, which says N <= 1,024 on the card."""
+    from ma_tpu_torch.ops.dp_fused import fused_kernel
+
+    monkeypatch.setenv("MA_TPU_DP_V2", v2)
+    c_fits = N <= 1024
+    want = {1024: "C'" if v2 == "1" else "C", 1025: "C'", 4096: "C'", 4097: "D"}[N]
+    assert fused_kernel(N, c_fits, True, -1) == want
+    if N <= 4096:
+        assert fused_kernel(N, c_fits, False, 200) == want
+    else:
+        with pytest.raises(ValueError, match="exceeds C'"):
+            fused_kernel(N, c_fits, False, 200)
+        with pytest.raises(ValueError, match="exceeds C'"):
+            fused_kernel(N, c_fits, True, 30)
+
+
+@pytest.mark.parametrize("M,N,R", [(16, 300, 32), (16, 300, 3), (24, 4200, 32)])
+def test_global_runs_through_d(M, N, R):
+    """Global problems without z-drop through the direction-tensor DP and
+    its traceback (the card's route past 4,096 columns), on their plain
+    versions: runs and meta equal the fused plain version's, run overflow
+    included (R = 3); every third band leaves the end cell outside it."""
+    from ma_tpu_torch.ops.dp_fused import global_runs_through_d
+
+    q, t, qlen, tlen, band, _ = _problems(M + N + R, 12 if N < 1000 else 3, M, N, True)
+    band[::3] = 5
+    args = [torch.as_tensor(a) for a in (q, t, qlen, tlen, band)]
+    want = banded_align_runs_plain(*args, M=M, N=N, R=R)
+    got = global_runs_through_d(*args, R=R)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert R == 32 or want[1][5].any()
+
+
+def _pack_runs_scalar(ops, n_ops, fi, fj, started, R):
+    """One problem at a time: emit each op, then fi + 1 inserts and fj + 1
+    deletions, merging into the last stored run where the op is its op."""
+    P = len(n_ops)
+    runs = np.zeros((P, R), np.int64)
+    cnt, over = np.zeros(P, np.int64), np.zeros(P, bool)
+    for p in range(P):
+        last = -1
+        items = [(int(o), 1) for o in ops[p, : n_ops[p]]]
+        if started[p]:
+            items += [(TD.OP_I, fi[p] + 1), (TD.OP_D, fj[p] + 1)]
+        for op, ln in items:
+            if ln <= 0:
+                continue
+            if cnt[p] and op == last:
+                runs[p, cnt[p] - 1] += 4 * ln
+            elif cnt[p] >= R:
+                over[p] = True
+            else:
+                runs[p, cnt[p]] = 4 * ln + op
+                cnt[p] += 1
+                last = op
+    return runs, cnt, over
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_pack_runs_matches_scalar_emit(seed):
+    """pack_runs (run packing on whole tensors) against the fused kernels'
+    emit order done one op at a time, with run overflow and merges into the
+    last stored run after it."""
+    from ma_tpu_torch.ops.dp_fused import pack_runs
+
+    rng = np.random.default_rng(seed)
+    P, S = 40, 48
+    ops = np.repeat(rng.integers(0, 3, (P, S)), rng.integers(1, 4), 1)[:, :S]
+    n_ops = rng.integers(0, S + 1, P)
+    ops = np.where(np.arange(S)[None, :] < n_ops[:, None], ops, TD.OP_NONE).astype(np.uint8)
+    fi, fj = rng.integers(-1, 4, P), rng.integers(-1, 4, P)
+    started = rng.random(P) < 0.8
+    for R in (1, 3, 8, 32):
+        got = pack_runs(torch.as_tensor(ops), torch.as_tensor(n_ops), torch.as_tensor(fi),
+                        torch.as_tensor(fj), torch.as_tensor(started), R)
+        want = _pack_runs_scalar(ops, n_ops, fi, fj, started, R)
+        for a, b in zip(got, want):
+            assert np.array_equal(a.numpy(), b)
+        assert R == 32 or want[2].any()

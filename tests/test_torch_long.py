@@ -5,6 +5,7 @@ to SAM byte-identical to ma_tpu's under its reference setting
 these batches; the chunked long extension against ma_tpu's and a monolithic
 DP; the fused bucket edge past the fused ladder; the Python path against the
 native path on short reads; and no jax on the long-read path."""
+import importlib
 import io
 import os
 import subprocess
@@ -271,6 +272,63 @@ def test_non_fused_bucket_through_kernel_d(fused_ma_tpu):
         nw.collect_batches()
     p = _same_problem(jnw, tnw, pi)
     assert len(p.cigar) > 32
+
+
+WIDE_KEEP = (0, 1, 10, 19, 29, 34)  # of 40 draws; reads 10, 19, 29 and 34 reach 1,025 columns
+
+
+def _wide_fixture(pkg="ma_tpu_torch"):
+    """A 30 kbp random genome and 500 bp reads whose first 248-256 bases are
+    random: each ends in a left extension of about 256 query bases. The
+    parameters: minimizers, Bandwidth for Extensions 768 and Padding 1,100,
+    so a 256-base extension reaches over 256 + 768 + 1 = 1,025 reference
+    columns."""
+    nucseq = importlib.import_module(pkg + ".containers.nucseq")
+    Pack = importlib.import_module(pkg + ".containers.pack").Pack
+    mgr = importlib.import_module(pkg + ".config.parameters").ParameterSetManager()
+    mgr.selected.set("Seeding Technique", "minimizers")
+    mgr.selected.set("Bandwidth for Extensions", 768)
+    mgr.selected.set("Padding", 1100)
+    rng = np.random.default_rng(6)
+    genome = rng.integers(0, 4, 30_000).astype(np.uint8)
+    pack = Pack.empty()
+    pack.append("chrW", genome)
+    reads = []
+    for i in range(40):
+        p = int(rng.integers(2_000, 28_000))
+        codes = genome[p : p + 500].copy()
+        k = 256 - int(rng.integers(0, 8))
+        codes[:k] = rng.integers(0, 4, k)
+        if i in WIDE_KEEP:
+            reads.append(nucseq.NucSeq.from_str(nucseq.decode_seq(codes), name=f"w{i}_{p}"))
+    return pack, reads, mgr
+
+
+def test_wide_fused_bucket_sam_identical_to_ma_tpu(fused_ma_tpu, monkeypatch):
+    """Extensions of 256 query bases over 1,025 reference columns: the
+    Python NW path's fused bucket runs 1,152 columns wide, past kernel C's
+    1,024 (C' takes it on the card; the spy sees the width on the CPU's
+    plain version). SAM byte-identical to ma_tpu's."""
+    from ma_tpu.index.fmd_index import FMDIndex
+    from ma_tpu.pipeline.aligner import Aligner as JAligner
+    from ma_tpu_torch.ops import dp_fused
+
+    jpack, jreads, jmgr = _wide_fixture("ma_tpu")
+    ref = io.StringIO()
+    JAligner(jpack, FMDIndex.build(jpack), params=jmgr).align_to_sam(iter(jreads), ref)
+    pack, reads, mgr = _wide_fixture()
+    widths = []
+    orig = dp_fused.banded_align_runs
+
+    def spy(*a, **kw):
+        widths.append(kw["N"])
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(dp_fused, "banded_align_runs", spy)
+    got = _port_sam(pack, reads, mgr)
+    assert max(widths) == 1152
+    assert got == ref.getvalue()
+    assert sum(not r.startswith("@") for r in got.splitlines()) >= len(reads)
 
 
 def test_long_path_imports_no_jax():
