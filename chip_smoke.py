@@ -24,10 +24,13 @@ Phases (any failure raises and exits non-zero before the last line):
   4. wavefront kernels: kernel D against its plain version at an extension
      bucket (P = 256, M = 1024, N = 4096, band 512, z-drop 200) and a global
      inversion-like bucket (P = 128, M = N = 512, band 512), exact on every
-     output, with both times; the traceback kernel against its plain version
-     on D's output; the problems that overflowed kernel C's run buffer in
-     phase 3 redone through D + traceback on the card and on the CPU (the
-     cigars must agree);
+     output, with both times, the times before D's redesign, both bound
+     terms (every cell's operations, not only the in-band ones: the
+     contract writes every byte) and D's time at 4 and at 2 lanes a
+     thread (the outputs must agree); the traceback kernel against its plain
+     version on D's output; the problems that overflowed kernel C's run
+     buffer in phase 3 redone through D + traceback on the card and on the
+     CPU (the cigars must agree);
   5. short reads: the bench.py workload at E. coli K-12 size (random
      4,641,652 bp genome, 16,384 x 150 bp reads at 1% substitutions, half
      reverse complemented, batch 4096) through
@@ -54,7 +57,9 @@ Phases (any failure raises and exits non-zero before the last line):
      Mbases/s (median of 3 passes after a warm-up), placement (primary
      records within 200 bp of the simulated start, must be >= 98%),
      inversion windows and records, host-clock stages, and each kernel's
-     launches in those passes (all five must launch); then the first 4 long
+     launches in those passes (all five must launch; D's per (P, M, N,
+     mode)); kernel D on the inputs of its launches in the stage pass, at 4
+     and at 2 lanes a thread (the outputs must agree); then the first 4 long
      reads on device="cpu" must give byte-identical SAM;
   8. long-read overflow rescue: 5 kb and 10 kb reads across a tandem repeat
      overflow their SoC windows; the rescue's stage sweeps rows of 4,096 and
@@ -62,17 +67,19 @@ Phases (any failure raises and exits non-zero before the last line):
      each read's primary record must overlap the interval it came from;
   9. wide fused problems: 40 reads of 500 bp ending in 256-base extensions,
      Bandwidth for Extensions 768 and Padding 1,100, so the Python NW path's
-     fused bucket runs 1,152 columns wide: with MA_TPU_DP_V2 unset, C' must
-     launch past 1,024 columns (its per (M, N, mode) tally), and the SAM
-     must equal the CPU port's.
+     fused bucket runs 1,152 columns wide, then 4,000 and 4,400, so it runs
+     4,352 wide: with MA_TPU_DP_V2 unset, C' must launch past 1,024 (then
+     4,096) columns (its per (M, N, mode) tally), and the SAM must equal the
+     CPU port's.
 
 The bound of a kernel (`bound_ms`) is the larger of the bytes it must move
 (each input read once, each output written once) over the card's memory rate
 (3.35 TB/s, the H100 SXM's published HBM3 rate) and its int32 operations
 over the int32 peak, 64 lanes per SM x the SMs x the card's maximum SM
-clock (nvidia-smi clocks.max.sm); `bound_by` names the larger. The DP
-kernels' operations are DP_OPS_PER_CELL per in-band cell of this run's
-problems. No single PyTorch call computes any of these kernels' functions,
+clock (nvidia-smi clocks.max.sm); `bound_by` names the larger. The fused
+DP kernels' operations are DP_OPS_PER_CELL per in-band cell of this run's
+problems, kernel D's DP_OPS_PER_CELL per cell of its direction tensor. No
+single PyTorch call computes any of these kernels' functions,
 so `library_ms` is null.
 
 The line before the last is the kernels' JSON record (each kernel's
@@ -118,6 +125,9 @@ INT32_LANES_PER_SM = 64
 # compare, select, max); direction byte 8 (four selects, four ors); row
 # maximum 3 (compare, two selects)
 DP_OPS_PER_CELL = 46
+# kernel D's times before its redesign (commit 79e2d9b) on the two timed
+# cases (P, M, N), as PERF.md records them: NVIDIA H100 80GB HBM3, 700.00 W
+D_BEFORE_MS = {(256, 1024, 4096): 20.870, (128, 512, 512): 1.203}
 
 
 def card_line() -> str:
@@ -500,12 +510,33 @@ def kernel_phase(aligner, reads, dev, records, roof):
     return overflowed
 
 
+def wavefront_lanes(args, reps: int = 5):
+    """Kernel D at 4 and at 2 lanes a thread on the same inputs (the two
+    outputs must be equal). Returns (the kernel's default, "4 lanes x ms, 2
+    lanes y ms")."""
+    from ma_tpu_torch import kernels
+    from ma_tpu_torch.ops.dp_wavefront import banded_align_wavefront
+
+    P, M = args[0].shape
+    want, times = None, []
+    for lanes in (4, 2):
+        got = banded_align_wavefront(*args, lanes=lanes)
+        if want is not None and max_abs_err(got, want):
+            raise AssertionError(f"dp_wavefront differs between 4 and 2 lanes a thread at "
+                                 f"P={P} M={M}")
+        want = got
+        ms = time_ms(lambda: banded_align_wavefront(*args, lanes=lanes), reps)
+        times.append(f"{lanes} lanes {ms:.3f} ms")
+    return kernels.query("ma_dp_wavefront_lanes", P, M), ", ".join(times)
+
+
 def wavefront_phase(dev, records, overflowed, roof):
     """Kernel D and the traceback kernel against their plain versions, and
     kernel C's run-overflow problems redone through both on the card and
     on the CPU."""
     import torch
 
+    from ma_tpu_torch import kernels
     from ma_tpu_torch.ops.dp import DPParams, banded_align_traceback_packed, rle_ops
     from ma_tpu_torch.ops.dp_wavefront import (
         banded_align_wavefront,
@@ -519,18 +550,29 @@ def wavefront_phase(dev, records, overflowed, roof):
     sums = {"dp_wavefront": [0, 0.0, 0.0, 0.0, []], "dp_traceback": [0, 0.0, 0.0, 0.0, []]}
     for P, M, N, is_global in ((256, 1024, 4096, False), (128, 512, 512, True)):
         q, t, ql, tl, _, _ = dp_inputs(rng, P, M, N, is_global, dev)
+        q, t = q.to(torch.uint8), t.to(torch.uint8)  # codes as the main path gives them
         bd = torch.full_like(ql, 512)
         args = (q, t, ql, tl, bd, params, -1 if is_global else 200, is_global)
         got = banded_align_wavefront(*args)
         err = max_abs_err(got, banded_align_wavefront_plain(*args))
         ms = time_ms(lambda: banded_align_wavefront(*args), 5)
         pms = time_ms(lambda: banded_align_wavefront_plain(*args), 1)
-        cells = inband_cells(ql.cpu().numpy(), tl.cpu().numpy(), bd.cpu().numpy(), M, N)
-        bnd = roof.bound(nbytes(q, t, ql, tl, bd) + nbytes(*got), cells * DP_OPS_PER_CELL)
+        lanes, by_lanes = wavefront_lanes(args)
+        # the contract writes every (diagonal, lane) byte, and every byte
+        # needs the recurrence, in band or not
+        cells = P * (M + N - 1) * M
+        inband = inband_cells(ql.cpu().numpy(), tl.cpu().numpy(), bd.cpu().numpy(), M, N)
+        moved = nbytes(q, t, ql, tl, bd) + nbytes(*got)
+        bnd = roof.bound(moved, cells * DP_OPS_PER_CELL)
+        b_ms = roof.bound(moved, 0)["bound_ms"]
+        o_ms = roof.bound(0, cells * DP_OPS_PER_CELL)["bound_ms"]
         print(f"kernel dp_wavefront: P={P} M={M} N={N} global={is_global} band=512 "
+              f"({lanes} lanes a thread; {by_lanes}) "
               f"zdropped={int(got.zdropped.sum())} max_abs_err={err} kernel {ms:.3f} ms "
-              f"plain {pms:.3f} ms; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})",
-              flush=True)
+              f"(before its redesign: {D_BEFORE_MS[(P, M, N)]:.3f} ms) plain {pms:.3f} ms; "
+              f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}): bytes {moved / 1e9:.4f} GB "
+              f"-> {b_ms:.4f} ms, every cell {cells} x {DP_OPS_PER_CELL} ops -> {o_ms:.4f} ms "
+              f"({inband} in band); {bnd['bound_ms'] / ms:.1%} of the bound", flush=True)
         if err:
             raise AssertionError(f"dp_wavefront differs from its plain version at {M}x{N}")
         si, sj = (ql - 1, tl - 1) if is_global else (got.max_i, got.max_j)
@@ -715,7 +757,8 @@ def long_phase(dev, pack, reads, starts, records, roof,
           flush=True)
     print(f"long launches: {json.dumps(launches)}; dp_fused per (M, N, mode): "
           f"{sorted(kernels.DP_FUSED.tally.items())}; dp_fused_v2: "
-          f"{sorted(kernels.DP_FUSED_V2.tally.items())}", flush=True)
+          f"{sorted(kernels.DP_FUSED_V2.tally.items())}; dp_wavefront per (P, M, N, mode): "
+          f"{sorted(kernels.DP_WAVEFRONT.tally.items())}", flush=True)
     path = {k: v for k, v in launches.items() if k != "dp_fused_v2"}
     if min(path.values()) == 0 or launches["dp_fused_v2"]:
         raise AssertionError(f"the long-read path did not run kernels A, B, C, D and the "
@@ -723,11 +766,39 @@ def long_phase(dev, pack, reads, starts, records, roof,
     if ok < 0.98 * len(reads):
         raise AssertionError(f"long-read placement {ok}/{len(reads)} < 98%")
 
-    # ---- host-clock stage breakdown of one more pass (not counted above)
+    # ---- host-clock stage breakdown of one more pass (not counted above),
+    # keeping kernel D's inputs to time them at both lane counts
+    from ma_tpu_torch.ops import dp_wavefront
+
+    seen, orig = [], dp_wavefront.banded_align_wavefront
+
+    def spy(*args, **kw):
+        seen.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+        return orig(*args, **kw)
+
     aligner.profiler = AnalyzeRuntimes()
-    run(aligner, reads)
+    dp_wavefront.banded_align_wavefront = spy
+    try:
+        run(aligner, reads)
+    finally:
+        dp_wavefront.banded_align_wavefront = orig
     print(aligner.profiler.analyze())
     aligner.profiler = None
+    for args in seen:
+        P, M = args[0].shape
+        lanes, by_lanes = wavefront_lanes(args)
+        # the device alone, by graph replay (8-bit codes: wider ones make the
+        # wrapper read their minimum back, which a graph cannot capture)
+        replay = (f"{graph_ms(lambda: orig(*args), calls=10):.3f} ms"
+                  if args[0].dtype == args[1].dtype == torch.uint8 else "not measured")
+        N = args[1].shape[1]
+        cells = P * (M + N - 1) * M
+        bnd = roof.bound(nbytes(*args[:5]) + cells + 4 * 4 * P, cells * DP_OPS_PER_CELL)
+        print(f"long pass dp_wavefront: P={P} M={M} N={N} "
+              f"{'global' if args[7] else 'extension'} (codes {args[0].dtype}): {lanes} lanes "
+              f"a thread by default; {by_lanes}; by graph replay at {lanes} lanes {replay}; "
+              f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, every cell {cells} x "
+              f"{DP_OPS_PER_CELL} ops)", flush=True)
 
     # ---- cross-check against the CPU port
     sub = reads[:check_reads]
@@ -770,12 +841,19 @@ def wide_workload():
     return pack, reads
 
 
+# (Bandwidth for Extensions, Padding, width C' must pass) of the wide phase:
+# a 256-base extension window of 1,025 columns (C' past C's 1,024) and one
+# of 4,257 (C' past 4,096, its rows walked in chunks)
+WIDE_CASES = ((768, 1100, 1024), (4000, 4400, 4096))
+
+
 def wide_phase(dev) -> None:
     """Fused problems wider than kernel C's 1,024 columns on the card:
-    minimizers with Bandwidth for Extensions 768 and Padding 1,100, so a
-    256-base extension spans 1,025 reference columns and the Python NW
-    path's fused bucket runs 1,152 wide. With MA_TPU_DP_V2 unset, C' must
-    launch at some N > 1,024, and the SAM must equal the CPU port's."""
+    minimizers with each WIDE_CASES setting of Bandwidth for Extensions and
+    Padding, so a 256-base extension spans 1,025 (4,257) reference columns
+    and the Python NW path's fused bucket runs 1,152 (4,352) wide. With
+    MA_TPU_DP_V2 unset, C' must launch past the case's width, C never past
+    1,024, and the SAM must equal the CPU port's."""
     import os
 
     import torch
@@ -788,30 +866,33 @@ def wide_phase(dev) -> None:
         raise AssertionError("the wide phase runs with MA_TPU_DP_V2 unset")
     pack, reads = wide_workload()
 
-    def sam(device):
-        mgr = ParameterSetManager()
-        mgr.selected.set("Seeding Technique", "minimizers")
-        mgr.selected.set("Bandwidth for Extensions", 768)
-        mgr.selected.set("Padding", 1100)
-        buf = io.StringIO()
-        Aligner(pack, mgr, device=device).align_to_sam(iter(reads), buf, batch_size=64)
-        return buf.getvalue()
+    for band, padding, past in WIDE_CASES:
+        def sam(device):
+            mgr = ParameterSetManager()
+            mgr.selected.set("Seeding Technique", "minimizers")
+            mgr.selected.set("Bandwidth for Extensions", band)
+            mgr.selected.set("Padding", padding)
+            buf = io.StringIO()
+            Aligner(pack, mgr, device=device).align_to_sam(iter(reads), buf, batch_size=64)
+            return buf.getvalue()
 
-    reset_launches()
-    t0 = time.perf_counter()
-    gpu_sam = sam(dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    wide = {k: v for k, v in kernels.DP_FUSED_V2.tally.items() if k[1] > 1024}
-    c_widths = sorted({k[1] for k in kernels.DP_FUSED.tally})
-    cpu_sam = sam("cpu")
-    print(f"wide: {len(reads)} reads x 500 bp, {wall:.1f} s on the card; dp_fused_v2 per (M, N, "
-          f"mode) past 1,024 columns: {wide}; dp_fused widths {c_widths}; SAM "
-          f"{len(cpu_sam)} bytes, identical to the CPU port's: {gpu_sam == cpu_sam}", flush=True)
-    if not wide or max(c_widths, default=0) > 1024:
-        raise AssertionError("the wide phase did not launch C' past 1,024 columns")
-    if gpu_sam != cpu_sam:
-        raise AssertionError(f"wide: GPU and CPU SAM differ at line {first_diff(gpu_sam, cpu_sam)}")
+        reset_launches()
+        t0 = time.perf_counter()
+        gpu_sam = sam(dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        wide = {k: v for k, v in kernels.DP_FUSED_V2.tally.items() if k[1] > past}
+        c_widths = sorted({k[1] for k in kernels.DP_FUSED.tally})
+        cpu_sam = sam("cpu")
+        print(f"wide (band {band}, padding {padding}): {len(reads)} reads x 500 bp, {wall:.1f} s "
+              f"on the card; dp_fused_v2 per (M, N, mode) past {past:,} columns: {wide}; "
+              f"dp_fused widths {c_widths}; SAM {len(cpu_sam)} bytes, identical to the CPU "
+              f"port's: {gpu_sam == cpu_sam}", flush=True)
+        if not wide or max(c_widths, default=0) > 1024:
+            raise AssertionError(f"the wide phase did not launch C' past {past:,} columns")
+        if gpu_sam != cpu_sam:
+            raise AssertionError(f"wide: GPU and CPU SAM differ at line "
+                                 f"{first_diff(gpu_sam, cpu_sam)}")
 
 
 def repeat_workload(read_len: int):

@@ -188,10 +188,10 @@ LINESWEEP = Kernel("linesweep", "ma_linesweep", "pppppii",
 DP_FUSED = Kernel("dp_fused", "ma_dp_fused", "pppppp" + "i" * 12,
                   "ma_tpu_torch/csrc/dp_fused.cu",
                   "ma_tpu/ops/dp_fused.py:100")
-DP_FUSED_V2 = Kernel("dp_fused_v2", "ma_dp_fused_v2", "pppppp" + "i" * 13,
+DP_FUSED_V2 = Kernel("dp_fused_v2", "ma_dp_fused_v2", "ppppppp" + "i" * 13,
                      "ma_tpu_torch/csrc/dp_fused_v2.cu",
                      "ma_tpu/ops/dp_fused.py:843")
-DP_WAVEFRONT = Kernel("dp_wavefront", "ma_dp_wavefront", "pppppp" + "i" * 11,
+DP_WAVEFRONT = Kernel("dp_wavefront", "ma_dp_wavefront", "ppppppp" + "i" * 12,
                       "ma_tpu_torch/csrc/dp_wavefront.cu",
                       "ma_tpu/ops/dp_pallas.py:53")
 DP_TRACEBACK = Kernel("dp_traceback", "ma_dp_traceback", "ppppiii",

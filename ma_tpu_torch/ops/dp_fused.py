@@ -19,8 +19,8 @@ the card (the Pallas kernel leaves the first lane of its first tile there).
 C and C' share this contract, so they share the plain version. On the
 card `banded_align_runs` picks the kernel by width (`fused_kernel`): C
 where it takes N (up to 1,024 columns, as its scratch-size query says),
-C' up to 4,096, and for wider global problems without z-drop kernel D +
-the traceback kernel. As in ma_tpu, MA_TPU_DP_V2=1 (read at each call)
+C' for every wider N, in both modes (past 4,096 columns C' walks each row
+in chunks of 4,096). As in ma_tpu, MA_TPU_DP_V2=1 (read at each call)
 also sends the widths C takes to C', whose row fits in at most 8 static
 tiles (`use_v2`); ma_tpu's further term PB2 >= 32 sizes TPU VMEM and holds
 for every shape (`_pick_pb_v2` never goes below 32), so it is left out.
@@ -157,78 +157,46 @@ def _scores(params: DPParams):
             params.gap_open2, params.gap_extend2)
 
 
-V2_MAX_N = 4096  # C' columns: 256 threads x 16
-
-
-def fused_kernel(N: int, c_fits: bool, is_global: bool, zdrop: int) -> str:
+def fused_kernel(N: int, c_fits: bool) -> str:
     """The kernel banded_align_runs launches for CUDA tensors of width N:
     "C" where kernel C takes the width (`c_fits`, from its scratch-size
-    query) and MA_TPU_DP_V2 does not ask for C' (`use_v2`); "C'" otherwise
-    up to V2_MAX_N columns. Past that, global problems without z-drop (the
-    planner's gaps under a Maximal Gap Size above V2_MAX_N) go to "D":
-    kernel D + the traceback kernel, whose end-cell score and path are the
-    fused kernels'. An extension past V2_MAX_N raises ValueError: D checks
-    z-drop per anti-diagonal, the fused kernels per row."""
-    if N <= V2_MAX_N:
-        return "C'" if use_v2(N) or not c_fits else "C"
-    if is_global and zdrop < 0:
-        return "D"
-    raise ValueError(f"dp_fused: N={N} exceeds C' ({V2_MAX_N} columns), and kernel D "
-                     f"gives the fused result only for global problems without z-drop")
-
-
-def global_runs_through_d(q, t, qlen, tlen, band, *, params: DPParams = DPParams(),
-                          R: int = MAX_RUNS):
-    """The fused contract for global problems without z-drop through the
-    direction-tensor DP (kernel D on CUDA tensors) and its traceback from
-    (qlen - 1, tlen - 1), the runs packed as the fused kernels pack them.
-    Problems go in groups whose [P, M + N - 1, M] direction bytes stay
-    within 1 GiB."""
-    from ma_tpu_torch.ops.dp import banded_align, traceback_device
-
-    P, M = q.shape
-    step = max(1, 2**30 // (M * (M + t.shape[1])))
-    runs, metas = [], []
-    for s in range(0, P, step):
-        part = slice(s, s + step)
-        res = banded_align(q[part], t[part], qlen[part], tlen[part], band[part], params, -1,
-                           True)
-        si = qlen[part].to(torch.int32) - 1
-        ops, n_ops, fi, fj = traceback_device(res.dirs, si, tlen[part].to(torch.int32) - 1)
-        r, n_runs, over = pack_runs(ops, n_ops, fi, fj, si >= 0, R)
-        minus = torch.full_like(si, -1)
-        runs.append(r)
-        metas.append(torch.stack([n_runs, res.score, minus, minus, torch.zeros_like(minus),
-                                  over.to(torch.int32), torch.full_like(minus, NEG_INF),
-                                  minus]).to(torch.int32))
-    if not runs:
-        return (torch.zeros((0, R), dtype=torch.int32, device=q.device),
-                torch.zeros((8, 0), dtype=torch.int32, device=q.device))
-    return torch.cat(runs), torch.cat(metas, 1)
+    query) and MA_TPU_DP_V2 does not ask for C' (`use_v2`); "C'" for every
+    other N, global or extension."""
+    return "C'" if use_v2(N) or not c_fits else "C"
 
 
 def banded_align_runs_v2(q, t, qlen, tlen, band, *, M: int, N: int,
                          params: DPParams = DPParams(), zdrop: int = -1,
                          is_global: bool = True, tb_last=None, R: int = MAX_RUNS):
-    """Kernel C' on CUDA tensors (N <= V2_MAX_N), the plain version on CPU
-    tensors; the contract of banded_align_runs. Launches are tallied per
-    (M, N, global or extension) with their problem counts."""
+    """Kernel C' on CUDA tensors (any N), the plain version on CPU tensors;
+    the contract of banded_align_runs. The problems go in launches whose
+    direction rows (and, past 4,096 columns, the row state C' carries
+    between chunks) stay within 1 GiB. Launches are tallied per (M, N,
+    global or extension) with their problem counts."""
     if q.device.type == "cpu":
         return banded_align_runs_plain(q, t, qlen, tlen, band, M=M, N=N, params=params,
                                        zdrop=zdrop, is_global=is_global,
                                        tb_last=tb_last, R=R)
-    if N > V2_MAX_N:
-        raise ValueError(f"dp_fused_v2: N={N} exceeds 256 threads x 16 columns ({V2_MAX_N})")
     q, t, meta_in, runs, meta = _operands(q, t, qlen, tlen, band, tb_last, M, N, R)
     P = q.shape[0]
     # direction rows streamed out by the kernel for its own traceback, each
-    # padded to a 16-byte multiple for the bulk copies
+    # padded to a 16-byte multiple for the bulk copies; int32 row state per
+    # problem where the row is walked in chunks
     ldn = -(-N // 16) * 16
-    dirs = torch.empty((P, M, ldn), dtype=torch.uint8, device=q.device)
-    if P:
-        kernels.DP_FUSED_V2.launch(q, t, meta_in, runs, meta, dirs, P, M, N, ldn, R,
-                                   *_scores(params), zdrop, int(is_global),
-                                   shape=(M, N, "global" if is_global else "extension"), items=P)
+    carry_ints = kernels.query("ma_dp_fused_v2_carry_ints", N, ldn)
+    step = max(1, 2**30 // (M * ldn + 4 * carry_ints))
+    mode = "global" if is_global else "extension"
+    for s in range(0, P, step):
+        k = min(step, P - s)
+        dirs = torch.empty((k, M, ldn), dtype=torch.uint8, device=q.device)
+        carry = torch.empty((k, carry_ints), dtype=torch.int32, device=q.device)
+        part_meta = meta if k == P else torch.empty((8, k), dtype=torch.int32, device=q.device)
+        kernels.DP_FUSED_V2.launch(q[s : s + k], t[s : s + k], meta_in[s : s + k],
+                                   runs[s : s + k], part_meta, dirs, carry if carry_ints else 0,
+                                   k, M, N, ldn, R, *_scores(params), zdrop, int(is_global),
+                                   shape=(M, N, mode), items=k)
+        if k != P:
+            meta[:, s : s + k] = part_meta
     return runs, meta
 
 
@@ -236,9 +204,8 @@ def banded_align_runs(q, t, qlen, tlen, band, *, M: int, N: int,
                       params: DPParams = DPParams(), zdrop: int = -1,
                       is_global: bool = True, tb_last=None, R: int = MAX_RUNS):
     """Fused DP + traceback on the tensors' device: the plain version for CPU
-    tensors; for CUDA tensors the kernel `fused_kernel` names (C, C', or D +
-    the traceback kernel). q [P, M], t [P, N] int32 codes; qlen/tlen/band/
-    tb_last [P]. Returns (runs [P, R], meta [8, P]). C's and C''s launches
+    tensors; for CUDA tensors the kernel `fused_kernel` names (C or C').
+    q [P, M], t [P, N] int32 codes; qlen/tlen/band/tb_last [P]. Returns (runs [P, R], meta [8, P]). C's and C''s launches
     are tallied per (M, N, global or extension) with their problem counts
     (`kernels.DP_FUSED.tally`, `kernels.DP_FUSED_V2.tally`)."""
     if q.device.type == "cpu":
@@ -248,12 +215,9 @@ def banded_align_runs(q, t, qlen, tlen, band, *, M: int, N: int,
     # traceback where the plane is too large for shared memory, else 0; < 0
     # where C does not take the width
     scratch = kernels.query("ma_dp_fused_scratch_bytes", M, N)
-    route = fused_kernel(N, scratch >= 0, is_global, zdrop)
-    if route == "C'":
+    if fused_kernel(N, scratch >= 0) == "C'":
         return banded_align_runs_v2(q, t, qlen, tlen, band, M=M, N=N, params=params,
                                     zdrop=zdrop, is_global=is_global, tb_last=tb_last, R=R)
-    if route == "D":
-        return global_runs_through_d(q, t, qlen, tlen, band, params=params, R=R)
     q, t, meta_in, runs, meta = _operands(q, t, qlen, tlen, band, tb_last, M, N, R)
     P = q.shape[0]
     dirs = torch.empty(P * scratch, dtype=torch.uint8, device=q.device)

@@ -170,10 +170,11 @@ def test_dp_fused_v2_kernel(cuda, M, N, is_global):
         assert all(torch.equal(a, b) for a, b in zip(got, c))
 
 
-@pytest.mark.parametrize("N", [128, 768, 2048, 4096])
+@pytest.mark.parametrize("N", [128, 768, 2048, 4096, 4224])
 def test_dp_fused_v2_direction_bytes(cuda, N):
     """Every direction byte C' streams out (rows < qlen, all N columns)
-    against the plain row DP's: 4, 8 and 16 columns per thread."""
+    against the plain row DP's: 4, 8 and 16 columns per thread, and rows
+    walked in chunks of 4,096 (N = 4,224)."""
     from ma_tpu_torch import kernels
     from ma_tpu_torch.ops.dp import DPParams
     from ma_tpu_torch.ops.dp_rows import banded_align_rows
@@ -186,7 +187,10 @@ def test_dp_fused_v2_direction_bytes(cuda, N):
     runs = torch.empty((P, 8), dtype=torch.int32, device=cuda)
     meta = torch.empty((8, P), dtype=torch.int32, device=cuda)
     dirs = torch.empty((P, M, N), dtype=torch.uint8, device=cuda)
-    kernels.DP_FUSED_V2.launch(q, t, meta_in, runs, meta, dirs, P, M, N, N, 8, *pr, 30, 0)
+    carry = torch.empty((P, kernels.query("ma_dp_fused_v2_carry_ints", N, N)),
+                        dtype=torch.int32, device=cuda)
+    kernels.DP_FUSED_V2.launch(q, t, meta_in, runs, meta, dirs, carry if carry.numel() else 0,
+                               P, M, N, N, 8, *pr, 30, 0)
     want = banded_align_rows(q, t, qlen, tlen, band, pr, 30, False).dirs
     torch.cuda.synchronize()
     rows = torch.arange(M, device=cuda)[None, :, None] < qlen[:, None, None]
@@ -277,34 +281,83 @@ def test_fmd_ops_on_cuda(cuda):
     assert torch.equal(occ.sa_lookup(dev, k[1:].to(cuda)).cpu(), occ.sa_lookup(cpu, k[1:]))
 
 
-@pytest.mark.parametrize("is_global,zdrop,M,N,state", [
-    (True, -1, 64, 128, "smem"), (False, 30, 64, 128, "smem"),
-    (False, 200, 2048, 1024, "smem"), (True, -1, 96, 200, "scratch"),
+@pytest.mark.parametrize("is_global,zdrop,M,N,P,band", [
+    (True, -1, 64, 128, 40, None), (False, 30, 64, 128, 40, None),
+    (False, 200, 2048, 1024, 12, None), (True, -1, 96, 200, 40, None),
+    (False, 30, 33, 300, 40, None), (True, -1, 127, 400, 40, None),
+    (False, 20, 1000, 1500, 16, None), (True, -1, 1536, 700, 8, None),
+    (False, 200, 4200, 600, 4, None), (True, -1, 200, 300, 40, 6),
+    (False, 30, 40, 100, 600, None), (False, 30, 200, 300, 1200, None),
+    (True, -1, 127, 300, 600, None), (False, 20, 1000, 700, 300, None),
 ])
-def test_dp_wavefront_and_traceback_kernels(cuda, monkeypatch, is_global, zdrop, M, N, state):
+def test_dp_wavefront_and_traceback_kernels(cuda, is_global, zdrop, M, N, P, band):
+    """Kernel D against its plain version on the whole direction tensor and
+    on score, max cell and z-drop, then the traceback kernel on its output:
+    M not a multiple of a warp's lanes or of 4 (33, 127, 1000), lanes in
+    rounds of a team's 16 warps (1,536, 2,048, 4,200), N < M, a band of 6,
+    z-drops that fire while the warps run skewed (every third target turns
+    random a third of the way in), several problems per block (P = 600 at
+    M = 40, P = 1,200 at M = 200). Each case runs at the kernel's default
+    lane count and at 4 and 2 lanes a thread."""
+    from ma_tpu_torch import kernels
     from ma_tpu_torch.ops import dp_wavefront as W
     from ma_tpu_torch.ops.dp import DPParams
 
-    if state == "scratch":  # the state in global scratch instead of shared memory
-        monkeypatch.setattr(W, "SMEM_STATE_BYTES", 0)
-    rng = np.random.default_rng(M + int(is_global))
-    P = 40
+    rng = np.random.default_rng(M + N + int(is_global))
     q = rng.integers(0, 4, (P, M))
     t = np.concatenate([q, rng.integers(0, 4, (P, N))], 1)[:, :N]
     t[rng.random(t.shape) < 0.05] = rng.integers(0, 4)
     t[:, 20:23] = 4
+    if not is_global:
+        t[::3, M // 3 :] = rng.integers(0, 4, t[::3, M // 3 :].shape)
+    bands = np.full(P, band) if band else rng.integers(5, max(60, min(M, N) // 2), P)
     dev = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int32, device=cuda)
     args = (dev(q), dev(t), dev(rng.integers(1, M + 1, P)), dev(rng.integers(1, N + 1, P)),
-            dev(rng.integers(5, 60, P)), DPParams(), zdrop, is_global)
+            dev(bands), DPParams(), zdrop, is_global)
+    before = kernels.DP_WAVEFRONT.launches
     got = W.banded_align_wavefront(*args)
     torch.cuda.synchronize()
+    assert kernels.DP_WAVEFRONT.launches == before + 1
     want = W.banded_align_wavefront_plain(*args)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for lanes in (4, 2):
+        other = W.banded_align_wavefront(*args, lanes=lanes)
+        assert all(torch.equal(a, b) for a, b in zip(other, want)), lanes
+    if zdrop == 20:
+        assert bool(want.zdropped.any()) and not bool(want.zdropped.all())
     si = torch.where(torch.arange(P, device=cuda) % 7 == 0, -1, got.max_i)
     tb = W.traceback_dirs(got.dirs, si, got.max_j)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(tb, W.traceback_dirs_plain(got.dirs, si,
                                                                             got.max_j)))
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32])
+def test_dp_wavefront_negative_codes(cuda, dtype):
+    """Kernel D scores codes as its plain version does: every code >= 4 an N,
+    any other compared as it is, negative codes down to -128 included; a
+    code below -128 (which one byte cannot hold) is refused."""
+    from ma_tpu_torch.ops import dp_wavefront as W
+    from ma_tpu_torch.ops.dp import DPParams
+
+    rng = np.random.default_rng(5)
+    P, M, N = 24, 70, 90
+    codes = np.array([-128, -7, -1, 0, 1, 2, 3, 4, 5, 127])
+    q = rng.choice(codes, (P, M))
+    t = np.concatenate([q, rng.choice(codes, (P, N))], 1)[:, :N]
+    t[rng.random(t.shape) < 0.2] = rng.choice(codes)
+    dev = lambda a, dt=torch.int32: torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                                                    device=cuda)
+    lens = (dev(rng.integers(1, M + 1, P)), dev(rng.integers(1, N + 1, P)),
+            dev(rng.integers(5, 40, P)))
+    for is_global, zdrop in ((True, -1), (False, 30)):
+        args = (dev(q, dtype), dev(t, dtype), *lens, DPParams(), zdrop, is_global)
+        got = W.banded_align_wavefront(*args)
+        want = W.banded_align_wavefront_plain(*args)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    t[0, 0] = -129
+    with pytest.raises(ValueError, match="below -128"):
+        W.banded_align_wavefront(dev(q), dev(t), *lens, DPParams(), -1, True)
 
 
 def test_long_read_rescue_on_card(cuda):
@@ -330,12 +383,13 @@ def test_kernels_count_launches(cuda):
     assert kernels.LINESWEEP.launches == before + 1
 
 
-@pytest.mark.parametrize("N", [1152, 4096])
+@pytest.mark.parametrize("N", [1152, 4096, 4224, 8320])
 @pytest.mark.parametrize("is_global", [True, False])
 def test_wide_fused_problems_take_c_prime(cuda, monkeypatch, N, is_global):
     """Past kernel C's 1,024 columns banded_align_runs launches C' with
     MA_TPU_DP_V2 unset, tallied per (M, N, mode), exact against the plain
-    version."""
+    version: rows in registers up to 4,096 columns, in chunks of 4,096
+    past that."""
     from ma_tpu_torch import kernels
     from ma_tpu_torch.ops.dp import DPParams
     from ma_tpu_torch.ops.dp_fused import banded_align_runs, banded_align_runs_plain
@@ -356,25 +410,33 @@ def test_wide_fused_problems_take_c_prime(cuda, monkeypatch, N, is_global):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
-def test_fused_problems_past_c_prime(cuda, monkeypatch):
-    """Past 4,096 columns: global problems without z-drop go through kernel D
-    and the traceback kernel, exact against the fused plain version;
-    extensions raise."""
+@pytest.mark.parametrize("is_global", [True, False])
+def test_fused_problems_past_c_prime(cuda, monkeypatch, is_global):
+    """Past 65,535 columns (beyond a 16-bit column in the row-max key): C'
+    launches, in both modes, and nothing else does; nothing raises; exact
+    against the fused plain version, with targets that reach the last
+    columns."""
     from ma_tpu_torch import kernels
     from ma_tpu_torch.ops.dp import DPParams
     from ma_tpu_torch.ops.dp_fused import banded_align_runs, banded_align_runs_plain
 
     monkeypatch.delenv("MA_TPU_DP_V2", raising=False)
-    N = 4224
-    args, tb = _dp_problems(np.random.default_rng(4), 24, 64, N, True, cuda)
-    kw = dict(M=64, N=N, params=DPParams(), zdrop=-1, is_global=True, R=32)
+    N, M, P = 65_600, 16, 12
+    rng = np.random.default_rng(4 + int(is_global))
+    (q, t, qlen, tlen, band), tb = _dp_problems(rng, P, M, N, is_global, cuda)
+    tlen[::2] = N - torch.arange(0, P, 2, device=cuda, dtype=torch.int32)
+    if is_global:  # the end cell inside the band
+        band = (tlen - qlen).abs() + 10
+    else:
+        band = torch.full_like(band, N)
+    kw = dict(M=M, N=N, params=DPParams(), zdrop=-1 if is_global else 30,
+              is_global=is_global, tb_last=tb, R=32)
     counts = lambda: [k.launches for k in kernels.KERNELS]  # noqa: E731
     before = counts()
-    got = banded_align_runs(*args, **kw)
+    got = banded_align_runs(q, t, qlen, tlen, band, **kw)
     torch.cuda.synchronize()
     grew = {k.name for k, a, b in zip(kernels.KERNELS, before, counts()) if b > a}
-    assert grew == {"dp_wavefront", "dp_traceback"}
-    want = banded_align_runs_plain(*args, **kw)
+    assert grew == {"dp_fused_v2"}
+    want = banded_align_runs_plain(q, t, qlen, tlen, band, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    with pytest.raises(ValueError, match="exceeds C'"):
-        banded_align_runs(*args, **dict(kw, zdrop=200, is_global=False, tb_last=tb))
+    assert is_global or int(want[1][2].max()) >= 0

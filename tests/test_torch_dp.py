@@ -321,40 +321,38 @@ def test_v2_selection_matches_ma_tpu(monkeypatch):
 @pytest.mark.parametrize("N", [1024, 1025, 4096, 4097])
 def test_fused_kernel_routing(monkeypatch, v2, N):
     """The card's kernel by width: C up to its 1,024 columns (C' there
-    under MA_TPU_DP_V2=1), C' from 1,025 to 4,096 whatever the variable says,
-    past 4,096 kernel D + the traceback kernel for global problems without
-    z-drop; an extension there raises. `c_fits` stands for C's scratch-size
-    query, which says N <= 1,024 on the card."""
+    under MA_TPU_DP_V2=1), C' for every wider N whatever the variable says,
+    global or extension. `c_fits` stands for C's scratch-size query, which
+    says N <= 1,024 on the card."""
     from ma_tpu_torch.ops.dp_fused import fused_kernel
 
     monkeypatch.setenv("MA_TPU_DP_V2", v2)
-    c_fits = N <= 1024
-    want = {1024: "C'" if v2 == "1" else "C", 1025: "C'", 4096: "C'", 4097: "D"}[N]
-    assert fused_kernel(N, c_fits, True, -1) == want
-    if N <= 4096:
-        assert fused_kernel(N, c_fits, False, 200) == want
-    else:
-        with pytest.raises(ValueError, match="exceeds C'"):
-            fused_kernel(N, c_fits, False, 200)
-        with pytest.raises(ValueError, match="exceeds C'"):
-            fused_kernel(N, c_fits, True, 30)
+    want = "C'" if v2 == "1" or N > 1024 else "C"
+    assert fused_kernel(N, N <= 1024) == want
 
 
-@pytest.mark.parametrize("M,N,R", [(16, 300, 32), (16, 300, 3), (24, 4200, 32)])
-def test_global_runs_through_d(M, N, R):
-    """Global problems without z-drop through the direction-tensor DP and
-    its traceback (the card's route past 4,096 columns), on their plain
-    versions: runs and meta equal the fused plain version's, run overflow
-    included (R = 3); every third band leaves the end cell outside it."""
-    from ma_tpu_torch.ops.dp_fused import global_runs_through_d
-
-    q, t, qlen, tlen, band, _ = _problems(M + N + R, 12 if N < 1000 else 3, M, N, True)
-    band[::3] = 5
-    args = [torch.as_tensor(a) for a in (q, t, qlen, tlen, band)]
-    want = banded_align_runs_plain(*args, M=M, N=N, R=R)
-    got = global_runs_through_d(*args, R=R)
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert R == 32 or want[1][5].any()
+@pytest.mark.parametrize("is_global,zdrop,M,P", [
+    (False, 5, 24, 6), (False, 200, 16, 4), (True, -1, 24, 5), (True, 30, 16, 4),
+])
+def test_fused_past_4096_columns(is_global, zdrop, M, P):
+    """Fused problems 4,224 columns wide (C' walks such rows in chunks of
+    4,096 on the card) through the port's banded_align_runs against
+    ma_tpu's tiled `_kernel` in interpret mode: extensions with z-drop and
+    last-row tracebacks, and global problems with and without z-drop (those
+    without went through kernel D on the card before)."""
+    N = 4224
+    q, t, qlen, tlen, band, tb_last = _problems(N + M + int(is_global), P, M, N, is_global)
+    rng = np.random.default_rng(N)
+    qlen[::5] = M  # problems 0 and 5 (their targets turn random early) z-drop
+    for p in range(0, P, 2):  # targets reaching past the first 4,096 columns
+        t[p, tlen[p]:] = rng.integers(0, 4, N - tlen[p])
+        tlen[p] = N - p
+    band = (np.maximum(band, np.abs(tlen - qlen) + 10) if is_global
+            else np.full(P, N)).astype(np.int32)
+    meta = _compare_on((q, t, qlen, tlen, band, tb_last), M, N, is_global, zdrop,
+                       TD.run_capacity(M))
+    if not is_global and zdrop == 5:
+        assert meta[4].any()
 
 
 def _pack_runs_scalar(ops, n_ops, fi, fj, started, R):

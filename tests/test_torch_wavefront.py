@@ -17,6 +17,8 @@ from ma_tpu_torch.ops.dp_wavefront import (  # noqa: E402
     banded_align_wavefront_plain,
     traceback_dirs,
     traceback_dirs_plain,
+    wavefront_book_from_keys,
+    wavefront_diagonal_maxima_plain,
 )
 
 # the suite runs several test processes side by side on the CPU; one
@@ -67,6 +69,31 @@ def test_wavefront_matches_xla_and_pallas(is_global, zdrop):
             assert np.array_equal(np.asarray(getattr(want, f)), getattr(got, f).numpy()), f
     if zdrop == 10:
         assert got.zdropped.any() and not got.zdropped.all()
+
+
+@pytest.mark.parametrize("is_global,zdrop", CASES)
+@pytest.mark.parametrize("seed", [0, 3])
+def test_book_rebuilt_from_diagonal_maxima(is_global, zdrop, seed):
+    """Kernel D's post-sweep book: each diagonal's (maximum, first maximal
+    lane), folded by a prefix argmax with strict > and the first drop
+    diagonal, gives exactly the plain version's score (extension), max_i,
+    max_j and zdropped, and so ma_tpu's."""
+    q, t, qlen, tlen, band = _problems(seed)
+    args = _torch(q, t, qlen, tlen, band)
+    want = banded_align_wavefront_plain(*args, TD.DPParams(), zdrop, is_global)
+    dmax, darg = wavefront_diagonal_maxima_plain(*args, TD.DPParams(), zdrop, is_global)
+    gmax, gi, gj, dropped = wavefront_book_from_keys(
+        dmax, darg, *args[2:], M=q.shape[1], params=TD.DPParams(), zdrop=zdrop,
+        is_global=is_global)
+    ref = JD.banded_align(q, t, qlen, tlen, band, JD.DPParams(), zdrop=zdrop,
+                          is_global=is_global)
+    for got, w, r in ((gi, want.max_i, ref.max_i), (gj, want.max_j, ref.max_j),
+                      (dropped, want.zdropped, ref.zdropped)):
+        assert torch.equal(got, w) and np.array_equal(got.numpy(), np.asarray(r))
+    if not is_global:
+        assert torch.equal(gmax, want.score)
+    if zdrop == 10 and seed == 0:  # some problems drop, some do not
+        assert dropped.any() and not dropped.all()
 
 
 def test_plain_is_the_cpu_route():
