@@ -20,17 +20,19 @@ Phases (any failure raises and exits non-zero before the last line):
      stable sort plus the plain sweep; C' (the DP kernel MA_TPU_DP_V2=1
      selects) also against C at the five fused buckets, both modes, P =
      4096, and against the plain version alone at (256, 4096) extension,
-     which C cannot take;
+     which C cannot take, with its bound; each kernel's times before its
+     redesign are printed beside the times now;
   4. wavefront kernels: kernel D against its plain version at an extension
      bucket (P = 256, M = 1024, N = 4096, band 512, z-drop 200) and a global
      inversion-like bucket (P = 128, M = N = 512, band 512), exact on every
      output, with both times, the times before D's redesign, both bound
      terms (every cell's operations, not only the in-band ones: the
      contract writes every byte) and D's time at 4 and at 2 lanes a
-     thread (the outputs must agree); the traceback kernel against its plain
-     version on D's output; the problems that overflowed kernel C's run
-     buffer in phase 3 redone through D + traceback on the card and on the
-     CPU (the cigars must agree);
+     thread (the outputs must agree); the traceback kernel against its
+     plain version on D's output, timed by CUDA events and by graph replay;
+     the problems that overflowed kernel C's run buffer in phase 3 redone
+     through D + traceback on the card and on the CPU (the cigars must
+     agree);
   5. short reads: the bench.py workload at E. coli K-12 size (random
      4,641,652 bp genome, 16,384 x 150 bp reads at 1% substitutions, half
      reverse complemented, batch 4096) through
@@ -59,7 +61,8 @@ Phases (any failure raises and exits non-zero before the last line):
      inversion windows and records, host-clock stages, and each kernel's
      launches in those passes (all five must launch; D's per (P, M, N,
      mode)); kernel D on the inputs of its launches in the stage pass, at 4
-     and at 2 lanes a thread (the outputs must agree); then the first 4 long
+     and at 2 lanes a thread (the outputs must agree), and the traceback
+     kernel on the inputs of its launches there; then the first 4 long
      reads on device="cpu" must give byte-identical SAM;
   8. long-read overflow rescue: 5 kb and 10 kb reads across a tandem repeat
      overflow their SoC windows; the rescue's stage sweeps rows of 4,096 and
@@ -128,6 +131,12 @@ DP_OPS_PER_CELL = 46
 # kernel D's times before its redesign (commit 79e2d9b) on the two timed
 # cases (P, M, N), as PERF.md records them: NVIDIA H100 80GB HBM3, 700.00 W
 D_BEFORE_MS = {(256, 1024, 4096): 20.870, (128, 512, 512): 1.203}
+# the traceback kernel's and C''s times before their redesign (commit
+# c77ad29), as PERF.md records them: NVIDIA H100 80GB HBM3, 700.00 W. The
+# traceback on D's output at the two cases above (P, M, N); C' summed over
+# the 10 bucket cases and at (256, 4096) extension, P = 4096
+TB_BEFORE_MS = {(256, 1024, 4096): 1.016, (128, 512, 512): 0.247}
+V2_BEFORE_MS = {"buckets": 13.714, (256, 4096): 19.750}
 
 
 def card_line() -> str:
@@ -390,14 +399,9 @@ def dp_inputs(rng, P: int, M: int, N: int, is_global: bool, dev):
 
 def kernel_phase(aligner, reads, dev, records, roof):
     """Kernels A, B, C and C' against their plain versions (C' also against
-    C). Returns kernel C's run-overflow problems as host arrays (q, t, qlen,
-    tlen, band, is_global) for the redo check of wavefront_phase."""
-    import torch
-
-    from ma_tpu_torch.ops.dp import DPParams, run_capacity
-    from ma_tpu_torch.ops.dp_fused import (
-        banded_align_runs, banded_align_runs_plain, banded_align_runs_v2,
-    )
+    C; fused_phase). Returns kernel C's run-overflow problems as host arrays
+    (q, t, qlen, tlen, band, is_global) for the redo check of
+    wavefront_phase."""
     from ma_tpu_torch.ops.harmonize_cuda import linesweep, linesweep_plain
 
     rng = np.random.default_rng(7)
@@ -430,7 +434,22 @@ def kernel_phase(aligner, reads, dev, records, roof):
         if case == (65536, 64):
             records["linesweep"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, **bd)
 
-    # ---- C and C': fused DP at every (M, N) bucket, P = 4096, both modes
+    return fused_phase(rng, dev, records, roof)
+
+
+def fused_phase(rng, dev, records, roof):
+    """Kernels C and C' against the plain version (C' also against C) at the
+    five fused buckets, both modes, P = 4096, and C' alone at (256, 4096)
+    extension, with their bounds. Returns kernel C's run-overflow problems as
+    host arrays (q, t, qlen, tlen, band, is_global) for the redo check of
+    wavefront_phase."""
+    import torch
+
+    from ma_tpu_torch.ops.dp import DPParams, run_capacity
+    from ma_tpu_torch.ops.dp_fused import (
+        banded_align_runs, banded_align_runs_plain, banded_align_runs_v2,
+    )
+
     params = DPParams()
     total_err, ms_sum, pms_sum, bound_sum = 0, 0.0, 0.0, 0.0
     v2_err, v2_ms, v2_pms = 0, 0.0, 0.0
@@ -483,8 +502,9 @@ def kernel_phase(aligner, reads, dev, records, roof):
             v2_ms += ms2
             v2_pms += pms
     print(f"kernel dp_fused / dp_fused_v2: record ms / plain_ms / bound_ms are sums over the "
-          f"10 bucket x mode cases: C {ms_sum:.3f} ms, C' {v2_ms:.3f} ms, bound "
-          f"{bound_sum:.4f} ms", flush=True)
+          f"10 bucket x mode cases: C {ms_sum:.3f} ms, C' {v2_ms:.3f} ms (before its "
+          f"redesign: {V2_BEFORE_MS['buckets']:.3f} ms), bound {bound_sum:.4f} ms; C' at "
+          f"{bound_sum / v2_ms:.1%} of the bound", flush=True)
     rec_bound = dict(bound_ms=bound_sum, bound_by="operations", library_ms=None)
     records["dp_fused"] = dict(max_abs_err=total_err, ms=ms_sum, plain_ms=pms_sum, **rec_bound)
     records["dp_fused_v2"] = dict(max_abs_err=v2_err, ms=v2_ms, plain_ms=v2_pms, **rec_bound)
@@ -496,9 +516,16 @@ def kernel_phase(aligner, reads, dev, records, roof):
     err2 = max_abs_err(got2, banded_align_runs_plain(q4, t4, ql4, tl4, bd4, **kw4))
     ms2 = time_ms(lambda: banded_align_runs_v2(q4, t4, ql4, tl4, bd4, **kw4), 3)
     pms = time_ms(lambda: banded_align_runs_plain(q4, t4, ql4, tl4, bd4, **kw4), 1)
+    cells = inband_cells(ql4.cpu().numpy(), tl4.cpu().numpy(), bd4.cpu().numpy(), 256, 4096)
+    bnd = roof.bound(nbytes(q4, t4, ql4, tl4, bd4, tb4) + nbytes(*got2),
+                     cells * DP_OPS_PER_CELL)
     print(f"kernel dp_fused_v2: P=4096 M=256 N=4096 global=False "
-          f"run_overflows={int(got2[1][5].sum())} max_abs_err={err2} kernel {ms2:.3f} ms "
-          f"plain {pms:.3f} ms", flush=True)
+          f"run_overflows={int(got2[1][5].sum())} zdropped={int(got2[1][4].sum())} "
+          f"max_abs_err={err2} kernel {ms2:.3f} ms (before its redesign: "
+          f"{V2_BEFORE_MS[(256, 4096)]:.3f} ms) plain {pms:.3f} ms; {cells} in-band cells "
+          f"of {4096 * 256 * 4096}, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
+          f"{bnd['bound_ms'] / ms2:.1%} of it", flush=True)
+    records["dp_fused_v2"].update(wide_ms=ms2, wide_plain_ms=pms, wide_bound_ms=bnd["bound_ms"])
     if err2:
         raise AssertionError("dp_fused_v2 differs from its plain version at 256x4096")
     del q4, t4, got2
@@ -530,29 +557,63 @@ def wavefront_lanes(args, reps: int = 5):
     return kernels.query("ma_dp_wavefront_lanes", P, M), ", ".join(times)
 
 
-def wavefront_phase(dev, records, overflowed, roof):
-    """Kernel D and the traceback kernel against their plain versions, and
-    kernel C's run-overflow problems redone through both on the card and
-    on the CPU."""
+def wavefront_cases(dev):
+    """Kernel D's two timed cases, (P, M, N, is_global, args): an extension
+    bucket (P = 256, 1024 x 4096, band 512, z-drop 200) and a global
+    inversion-like bucket (P = 128, 512 x 512, band 512), codes as uint8."""
     import torch
 
-    from ma_tpu_torch import kernels
-    from ma_tpu_torch.ops.dp import DPParams, banded_align_traceback_packed, rle_ops
-    from ma_tpu_torch.ops.dp_wavefront import (
-        banded_align_wavefront,
-        banded_align_wavefront_plain,
-        traceback_dirs,
-        traceback_dirs_plain,
-    )
+    from ma_tpu_torch.ops.dp import DPParams
 
     rng = np.random.default_rng(11)
-    params = DPParams()
-    sums = {"dp_wavefront": [0, 0.0, 0.0, 0.0, []], "dp_traceback": [0, 0.0, 0.0, 0.0, []]}
     for P, M, N, is_global in ((256, 1024, 4096, False), (128, 512, 512, True)):
         q, t, ql, tl, _, _ = dp_inputs(rng, P, M, N, is_global, dev)
         q, t = q.to(torch.uint8), t.to(torch.uint8)  # codes as the main path gives them
         bd = torch.full_like(ql, 512)
-        args = (q, t, ql, tl, bd, params, -1 if is_global else 200, is_global)
+        yield P, M, N, is_global, (q, t, ql, tl, bd, DPParams(), -1 if is_global else 200,
+                                   is_global)
+
+
+def traceback_case(label: str, dirs, si, sj, roof, before_ms=None, plain_reps: int = 1) -> dict:
+    """The traceback kernel against its plain version on one launch's
+    inputs (exact on every output), timed by CUDA events around the wrapper
+    and by graph replay (the device alone; the plain version `plain_reps`
+    times, 0: not timed), with its bound: one direction byte read per step
+    of each path, the start cells, the outputs."""
+    from ma_tpu_torch.ops.dp_wavefront import traceback_dirs, traceback_dirs_plain
+
+    P, D, M = dirs.shape
+    got = traceback_dirs(dirs, si, sj)
+    err = max_abs_err(got, traceback_dirs_plain(dirs, si, sj))
+    ms = time_ms(lambda: traceback_dirs(dirs, si, sj), 5)
+    replay = graph_ms(lambda: traceback_dirs(dirs, si, sj), calls=10)
+    pms = time_ms(lambda: traceback_dirs_plain(dirs, si, sj), plain_reps) if plain_reps else None
+    steps = int(got[1].clamp(min=0).sum())
+    bnd = roof.bound(steps + nbytes(si, sj) + nbytes(*got), 0)
+    before = "" if before_ms is None else f" (before its redesign: {before_ms:.3f} ms)"
+    plain = "not timed" if pms is None else f"{pms:.3f} ms"
+    print(f"{label} dp_traceback: P={P} M={M} N={D + 1 - M} longest path {int(got[1].max())} "
+          f"steps {steps} max_abs_err={err} kernel {ms:.4f} ms by events, {replay:.4f} ms by "
+          f"graph replay{before} plain {plain}; bound {bnd['bound_ms']:.5f} ms "
+          f"({bnd['bound_by']}), {bnd['bound_ms'] / replay:.2%} of the replay time",
+          flush=True)
+    if err:
+        raise AssertionError(f"dp_traceback differs from its plain version ({label}, P={P} "
+                             f"M={M})")
+    return dict(max_abs_err=err, ms=ms, replay_ms=replay, plain_ms=pms, **bnd)
+
+
+def wavefront_phase(dev, records, overflowed, roof):
+    """Kernel D and the traceback kernel against their plain versions, and
+    kernel C's run-overflow problems redone through both on the card and
+    on the CPU."""
+    from ma_tpu_torch.ops.dp import DPParams, banded_align_traceback_packed, rle_ops
+    from ma_tpu_torch.ops.dp_wavefront import banded_align_wavefront, banded_align_wavefront_plain
+
+    params = DPParams()
+    sums = {"dp_wavefront": [0, 0.0, 0.0, 0.0, []], "dp_traceback": [0, 0.0, 0.0, 0.0, []]}
+    for P, M, N, is_global, args in wavefront_cases(dev):
+        q, t, ql, tl, bd = args[:5]
         got = banded_align_wavefront(*args)
         err = max_abs_err(got, banded_align_wavefront_plain(*args))
         ms = time_ms(lambda: banded_align_wavefront(*args), 5)
@@ -576,23 +637,14 @@ def wavefront_phase(dev, records, overflowed, roof):
         if err:
             raise AssertionError(f"dp_wavefront differs from its plain version at {M}x{N}")
         si, sj = (ql - 1, tl - 1) if is_global else (got.max_i, got.max_j)
-        tb = traceback_dirs(got.dirs, si, sj)
-        terr = max_abs_err(tb, traceback_dirs_plain(got.dirs, si, sj))
-        tms = time_ms(lambda: traceback_dirs(got.dirs, si, sj), 5)
-        tpms = time_ms(lambda: traceback_dirs_plain(got.dirs, si, sj), 1)
-        # the walk reads one direction byte per step of each path
-        tbnd = roof.bound(int(tb[1].clamp(min=0).sum()) + nbytes(si, sj) + nbytes(*tb), 0)
-        print(f"kernel dp_traceback: P={P} M={M} N={N} longest path {int(tb[1].max())} "
-              f"max_abs_err={terr} kernel {tms:.3f} ms plain {tpms:.3f} ms; bound "
-              f"{tbnd['bound_ms']:.5f} ms ({tbnd['bound_by']})", flush=True)
-        if terr:
-            raise AssertionError(f"dp_traceback differs from its plain version at {M}x{N}")
+        tb = traceback_case("kernel", got.dirs, si, sj, roof, TB_BEFORE_MS[(P, M, N)])
         for name, e, a, b, c in (("dp_wavefront", err, ms, pms, bnd),
-                                 ("dp_traceback", terr, tms, tpms, tbnd)):
+                                 ("dp_traceback", tb["max_abs_err"], tb["ms"], tb["plain_ms"],
+                                  tb)):
             s = sums[name]
             sums[name] = [max(s[0], e), s[1] + a, s[2] + b, s[3] + c["bound_ms"],
                           s[4] + [c]]
-        del got, tb
+        del got
     print("kernel dp_wavefront / dp_traceback: record ms / plain_ms / bound_ms are sums over "
           "the 2 cases, bound_by the larger case's", flush=True)
     for name, (e, a, b, c, cases) in sums.items():
@@ -706,6 +758,31 @@ def long_placement(sam: str, starts: np.ndarray):
     return ok, n_prim
 
 
+def spied_pass(run_pass):
+    """run_pass() with the wrappers of kernel D and of the traceback kernel
+    spied on. Returns the arguments of each of their calls, tensors cloned:
+    (D's, the traceback's)."""
+    import torch
+
+    from ma_tpu_torch.ops import dp_wavefront
+
+    seen: tuple = ([], [])
+    orig = dp_wavefront.banded_align_wavefront, dp_wavefront.traceback_dirs
+
+    def spy(k):
+        def call(*args, **kw):
+            seen[k].append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+            return orig[k](*args, **kw)
+        return call
+
+    dp_wavefront.banded_align_wavefront, dp_wavefront.traceback_dirs = spy(0), spy(1)
+    try:
+        run_pass()
+    finally:
+        dp_wavefront.banded_align_wavefront, dp_wavefront.traceback_dirs = orig
+    return seen
+
+
 def long_phase(dev, pack, reads, starts, records, roof,
                check_reads: int = LONG_CHECK_READS) -> dict:
     """The long-read main path on `dev`: warm-up, kernel A on the first
@@ -717,6 +794,7 @@ def long_phase(dev, pack, reads, starts, records, roof,
 
     from ma_tpu_torch.utils.profile import AnalyzeRuntimes
     from ma_tpu_torch import kernels
+    from ma_tpu_torch.ops.dp_wavefront import banded_align_wavefront
     from ma_tpu_torch.pipeline.aligner import Aligner
 
     def run(al, rs):
@@ -767,21 +845,9 @@ def long_phase(dev, pack, reads, starts, records, roof,
         raise AssertionError(f"long-read placement {ok}/{len(reads)} < 98%")
 
     # ---- host-clock stage breakdown of one more pass (not counted above),
-    # keeping kernel D's inputs to time them at both lane counts
-    from ma_tpu_torch.ops import dp_wavefront
-
-    seen, orig = [], dp_wavefront.banded_align_wavefront
-
-    def spy(*args, **kw):
-        seen.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
-        return orig(*args, **kw)
-
+    # keeping kernel D's and the traceback kernel's inputs to time them
     aligner.profiler = AnalyzeRuntimes()
-    dp_wavefront.banded_align_wavefront = spy
-    try:
-        run(aligner, reads)
-    finally:
-        dp_wavefront.banded_align_wavefront = orig
+    seen, tb_seen = spied_pass(lambda: run(aligner, reads))
     print(aligner.profiler.analyze())
     aligner.profiler = None
     for args in seen:
@@ -789,7 +855,7 @@ def long_phase(dev, pack, reads, starts, records, roof,
         lanes, by_lanes = wavefront_lanes(args)
         # the device alone, by graph replay (8-bit codes: wider ones make the
         # wrapper read their minimum back, which a graph cannot capture)
-        replay = (f"{graph_ms(lambda: orig(*args), calls=10):.3f} ms"
+        replay = (f"{graph_ms(lambda: banded_align_wavefront(*args), calls=10):.3f} ms"
                   if args[0].dtype == args[1].dtype == torch.uint8 else "not measured")
         N = args[1].shape[1]
         cells = P * (M + N - 1) * M
@@ -799,6 +865,8 @@ def long_phase(dev, pack, reads, starts, records, roof,
               f"a thread by default; {by_lanes}; by graph replay at {lanes} lanes {replay}; "
               f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, every cell {cells} x "
               f"{DP_OPS_PER_CELL} ops)", flush=True)
+    for dirs, si, sj in tb_seen:
+        traceback_case("long pass", dirs, si, sj, roof)
 
     # ---- cross-check against the CPU port
     sub = reads[:check_reads]
@@ -843,7 +911,7 @@ def wide_workload():
 
 # (Bandwidth for Extensions, Padding, width C' must pass) of the wide phase:
 # a 256-base extension window of 1,025 columns (C' past C's 1,024) and one
-# of 4,257 (C' past 4,096, its rows walked in chunks)
+# of 4,257 (C' past 4,096 columns)
 WIDE_CASES = ((768, 1100, 1024), (4000, 4400, 4096))
 
 
@@ -1186,9 +1254,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also run one pass under torch.profiler")
-    ap.add_argument("--soc-only", action="store_true",
-                    help="only kernel A's two timed cases, printed as JSON (run a copy of "
-                         "this script from another tree's root to compare two trees' A)")
+    ap.add_argument("--only", choices=("soc", "dp", "traceback"),
+                    help="only one kernel's timed cases, printed as JSON: kernel A's two "
+                         "(soc), kernels C and C' on the inputs of a full run (dp), the "
+                         "traceback kernel on kernel D's two cases and the long pass's own "
+                         "launches (traceback); run a copy of this script from another "
+                         "tree's root to compare two trees")
     args = ap.parse_args()
 
     import torch
@@ -1217,7 +1288,7 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print("ptxas:", line.strip())
 
-    if args.soc_only:
+    if args.only == "soc":
         records: dict = {}
         pack, reads, _ = simulate(GENOME_BP, BATCH, READ_LEN)  # the first batch of N_READS
         aligner = Aligner(pack, device=dev)
@@ -1228,6 +1299,34 @@ def main() -> int:
                                                reads_l[:LONG_BATCH], dev),
                  records, roof, plain_reps=0)
         print(json.dumps(records))
+        return 0
+
+    if args.only == "dp":
+        records = {}
+        rng = np.random.default_rng(7)
+        for shape in ((65536, 64), (512, 2048)):  # kernel_phase's draws before fused_phase
+            linesweep_inputs(rng, *shape, dev)
+        fused_phase(rng, dev, records, roof)
+        print(json.dumps({k: records[k] for k in ("dp_fused", "dp_fused_v2")}))
+        return 0
+
+    if args.only == "traceback":
+        from ma_tpu_torch.ops.dp_wavefront import banded_align_wavefront
+
+        cases = []
+        for P, M, N, is_global, wargs in wavefront_cases(dev):
+            got = banded_align_wavefront(*wargs)
+            si, sj = (wargs[2] - 1, wargs[3] - 1) if is_global else (got.max_i, got.max_j)
+            cases.append(traceback_case("kernel", got.dirs, si, sj, roof,
+                                        TB_BEFORE_MS[(P, M, N)], plain_reps=0))
+            del got
+        pack_l, reads_l, _ = simulate_long()
+        al = Aligner(pack_l, long_params(), device=dev)
+        al.align_to_sam(iter(reads_l[:8]), io.StringIO(), batch_size=LONG_BATCH)
+        _, tb_seen = spied_pass(lambda: al.align_to_sam(iter(reads_l), io.StringIO(),
+                                                        batch_size=LONG_BATCH))
+        cases += [traceback_case("long pass", *a, roof, plain_reps=0) for a in tb_seen]
+        print(json.dumps(cases))
         return 0
 
     t0 = time.perf_counter()

@@ -1,8 +1,9 @@
 // What kernels C (dp_fused.cu) and C' (dp_fused_v2.cu) share: the
-// contract's constants, the cell step of the row recurrence (C with Hopper's
-// DPX max instructions, C' with a max and a compare each), the max-cell book,
-// the traceback step and its run packer, the meta record, and the bulk
-// copies that stream direction rows out of shared memory.
+// contract's constants, the cell step of the row recurrence (with Hopper's
+// DPX max instructions), the max-cell book, the traceback step and the warp
+// walk (which the traceback kernel, dp_traceback.cu, shares too), the run
+// packer, the meta record, and the bulk copies that stream direction rows
+// out of shared memory.
 //
 // The recurrences, boundary values, direction bytes and tie precedence are
 // ma_tpu_torch/ops/dp_rows.py's (the plain version):
@@ -36,32 +37,27 @@ __host__ __device__ __forceinline__ int gap_cost(int k, const Scores& s) {
 // ---- the cell step, split where the row's E prefix maximum comes between
 
 // A maximum of two and whether the first won (ties to it): one DPX
-// instruction (__vibmax_s32) where DPX is set, a max and a compare otherwise.
-template <bool DPX>
+// instruction.
 __device__ __forceinline__ int bmax(int a, int b, bool* first) {
-  if (DPX) return __vibmax_s32(a, b, first);
-  *first = a >= b;
-  return max(a, b);
+  return __vibmax_s32(a, b, first);
 }
 
 // Before the E terms: F1 / F2 from the cell above (h_up) with their
 // continuation bits (the F term wins ties), the substitution score and
 // H~ = max(diag + score, F1, F2) (NEG outside the band). hd = diag + score.
-template <bool DPX>
 __device__ __forceinline__ void cell_f(int h_up, int diag, int qc, int tc, bool valid,
                                        const Scores& s, int& f1, int& f2, bool& cf1, bool& cf2,
                                        int& hd, int& h0) {
-  f1 = bmax<DPX>(f1 - s.ge1, h_up - (s.go1 + s.ge1), &cf1);
-  f2 = bmax<DPX>(f2 - s.ge2, h_up - (s.go2 + s.ge2), &cf2);
+  f1 = bmax(f1 - s.ge1, h_up - (s.go1 + s.ge1), &cf1);
+  f2 = bmax(f2 - s.ge2, h_up - (s.go2 + s.ge2), &cf2);
   const int sc = (qc >= 4 || tc >= 4) ? 0 : (qc == tc ? s.match : -s.mismatch);
   hd = diag + sc;
-  h0 = valid ? (DPX ? __vimax3_s32(hd, f1, f2) : max(hd, max(f1, f2))) : NEG;
+  h0 = valid ? __vimax3_s32(hd, f1, f2) : NEG;
 }
 
 // The E terms and H of column j: run1/run2 hold the prefix maximum of
 // v_p(k) = H~(i, k-1) + e_p (k-1) over k < j and advance to include v_p(j);
 // open_src is H~(i, j-1). Returns H (NEG outside the band) and the byte.
-template <bool DPX>
 __device__ __forceinline__ int cell_h(int j, int v1, int v2, int open_src, int hd, int f1, int f2,
                                       bool cf1, bool cf2, bool valid, const Scores& s, int& run1,
                                       int& run2, uint32_t& byte) {
@@ -76,13 +72,13 @@ __device__ __forceinline__ int cell_h(int j, int v1, int v2, int open_src, int h
   run2 = a2;
   bool keep;  // the earlier source wins ties
   int src = 0;
-  int h = bmax<DPX>(hd, e1, &keep);
+  int h = bmax(hd, e1, &keep);
   src = keep ? src : 1;
-  h = bmax<DPX>(h, f1, &keep);
+  h = bmax(h, f1, &keep);
   src = keep ? src : 2;
-  h = bmax<DPX>(h, e2, &keep);
+  h = bmax(h, e2, &keep);
   src = keep ? src : 3;
-  h = bmax<DPX>(h, f2, &keep);
+  h = bmax(h, f2, &keep);
   src = keep ? src : 4;
   byte = static_cast<uint32_t>(src | (ce1 ? CONT_E1 : 0) | (cf1 ? CONT_F1 : 0) |
                                (ce2 ? CONT_E2 : 0) | (cf2 ? CONT_F2 : 0));
@@ -170,8 +166,10 @@ __device__ __forceinline__ void tb_start(bool is_global, int tb_last, int m, int
 }
 
 // One traceback step on the byte of cell (i, jj); returns whether the walk
-// has left the matrix.
-__device__ __forceinline__ bool tb_step(int byte, int& i, int& jj, int& mode, Runs& out) {
+// has left the matrix. `out` takes the op (Runs, or any sink with the same
+// emit).
+template <class Sink>
+__device__ __forceinline__ bool tb_step(int byte, int& i, int& jj, int& mode, Sink& out) {
   const int src = byte & 7;
   int e_mode = mode;
   if (mode == TB_H)
@@ -196,26 +194,25 @@ __device__ __forceinline__ void tb_finish(int si, int i, int jj, Runs& out) {
   }
 }
 
-// The traceback over a direction plane by a whole warp (every lane calls it
-// with the same arguments; lane 0 stores the runs). Each round reads the
-// next 32 cells of the current run in parallel: the diagonal while the
-// cells' source is the diagonal (M steps), the row while E continues (D
-// steps), the column while F continues (I steps); one ballot finds where
-// the run ends, and the cell there takes one ordinary step. The runs equal
-// the one-cell-a-step walk's. GLOBAL: the plane is in global memory, written
-// by bulk copies this kernel has waited for, and is read through L2.
-template <bool GLOBAL>
-__device__ inline void traceback_plane_warp(const unsigned char* plane, int ldn, int si, int sj,
-                                            Runs& out, int lane) {
-  int i = si, jj = sj, mode = TB_H;
-  bool done = si < 0 || sj < 0;
+// The traceback walk by a whole warp, from (i, jj) until it leaves the
+// matrix (every lane calls it with the same arguments and keeps the same
+// state). `cell(i, j)` gives the direction byte of a cell inside the matrix;
+// `out.emit(op, len)` takes the ops in order, a run of up to 32 at a time.
+// Each round reads the next 32 cells of the current run in parallel: the
+// diagonal while the cells' source is the diagonal (M steps), the row while
+// E continues (D steps), the column while F continues (I steps); one ballot
+// finds where the run ends, and the cell there takes one ordinary step. The
+// ops equal the one-cell-a-step walk's. Leaves (i, jj) at the walk's end.
+template <class Cell, class Sink>
+__device__ inline void walk_warp(const Cell& cell, int& i, int& jj, Sink& out, int lane) {
+  int mode = TB_H;
+  bool done = i < 0 || jj < 0;
   while (!done) {
     const bool diag = mode == TB_H;
     const bool row = mode == TB_E1 || mode == TB_E2;
     const int ii = row ? i : i - lane, jk = diag || row ? jj - lane : jj;
     const bool inside = ii >= 0 && jk >= 0;
-    const unsigned char* cell = plane + static_cast<size_t>(ii) * ldn + jk;
-    const int byte = !inside ? 0 : GLOBAL ? __ldcg(cell) : *cell;
+    const int byte = inside ? cell(ii, jk) : 0;
     const int cont_bit = mode == TB_E1 ? CONT_E1 : mode == TB_E2 ? CONT_E2
                          : mode == TB_F1 ? CONT_F1 : CONT_F2;
     // a cell that ends the run: leaves the matrix, leaves the diagonal, or
@@ -244,7 +241,29 @@ __device__ inline void traceback_plane_warp(const unsigned char* plane, int ldn,
       done = i < 0 || jj < 0;
     }
   }
+}
+
+// The fused kernels' traceback by a whole warp (lane 0 stores the runs):
+// the walk from (si, sj) over `cell`, then the leading gaps.
+template <class Cell>
+__device__ inline void traceback_warp(const Cell& cell, int si, int sj, Runs& out, int lane) {
+  int i = si, jj = sj;
+  walk_warp(cell, i, jj, out, lane);
   tb_finish(si, i, jj, out);
+}
+
+// The same over a direction plane [rows, ldn] in shared memory or, GLOBAL,
+// in global memory written by bulk copies this kernel has waited for (read
+// through L2).
+template <bool GLOBAL>
+__device__ inline void traceback_plane_warp(const unsigned char* plane, int ldn, int si, int sj,
+                                            Runs& out, int lane) {
+  traceback_warp(
+      [&](int ii, int jk) -> int {
+        const unsigned char* c = plane + static_cast<size_t>(ii) * ldn + jk;
+        return GLOBAL ? __ldcg(c) : *c;
+      },
+      si, sj, out, lane);
 }
 
 // meta [8, P] of problem p.

@@ -177,7 +177,7 @@ __global__ void __launch_bounds__(256, 3)
         prev_old = h[k];
         const int tc = (tcw >> (8 * k)) & 0xff;
         valid[k] = j < N && j < n && abs(i - j) <= w;
-        cell_f<true>(h_up, diag, qc, tc, valid[k], s, f1[k], f2[k], cf1[k], cf2[k], hd[k], h0[k]);
+        cell_f(h_up, diag, qc, tc, valid[k], s, f1[k], f2[k], cf1[k], cf2[k], hd[k], h0[k]);
         if (k == 0 && edge) esc = hd[0] - diag;  // the substitution score
       }
     } else {
@@ -315,7 +315,7 @@ __global__ void __launch_bounds__(256, 3)
         const int v1 = k == 0 ? v01 : h0[k - 1] + s.ge1 * (j - 1);
         const int v2 = k == 0 ? v02 : h0[k - 1] + s.ge2 * (j - 1);
         uint32_t byte;
-        const int hv = cell_h<true>(j, v1, v2, open_src, hd[k], f1[k], f2[k], cf1[k], cf2[k],
+        const int hv = cell_h(j, v1, v2, open_src, hd[k], f1[k], f2[k], cf1[k], cf2[k],
                               valid[k], s, run1, run2, byte);
         h[k] = hv;
         dword |= byte << (8 * k);

@@ -10,52 +10,80 @@
 // ops [P, M+N] uint8, and out [3, P] int32 (n_ops, final i, final j; the
 // final coordinates give the leading I / D residual). si < 0 skips a problem.
 //
-// What bounds it on the H100: each step is one dependent byte load from the
-// direction tensor (device memory or L2), so a path costs its length times
-// the load latency; the problems are independent. Design: one thread per
-// problem, the path walked in registers, ops written as they are emitted.
-#include "common.cuh"
+// What bounds it on the H100: the chain of dependent byte loads along each
+// path (device memory or L2, several hundred cycles each); the bytes are
+// few (one per step, plus the outputs). Design:
+//  - a warp per problem walks a run per round (csrc/dp_common.cuh
+//    walk_warp, kernels C's and C''s walk): lane k reads the cell k steps
+//    ahead along the current run (stride -(2M + 1) bytes on a diagonal,
+//    -(M + 1) up a column in F mode, -M along a row in E mode), one ballot
+//    ends the run at the first cell that leaves the diagonal, does not
+//    continue its gap or lies outside the matrix, and that cell takes one
+//    ordinary step: one dependent round trip per run of up to 32 steps,
+//    not per step;
+//  - the lanes store a run's op bytes together, and the OP_NONE tail is a
+//    warp-wide fill in 16-byte stores;
+//  - blocks of 1 to 4 warps, as few as leave every SM a block where P
+//    allows (P = 32 spreads over 32 SMs);
+//  - a start outside the matrix (si >= M or sj >= N, outside the contract)
+//    takes the plain version's clamped one-cell-a-step walk, so the outputs
+//    equal traceback_dirs_plain's on any input.
+#include "dp_common.cuh"
 
 namespace {
 
-constexpr int OP_M = 0, OP_I = 1, OP_D = 2, OP_NONE = 255;
-constexpr int TB_H = 0, TB_E1 = 1, TB_E2 = 2, TB_F1 = 3, TB_F2 = 4;
-constexpr int CONT_E1 = 0x08, CONT_F1 = 0x10, CONT_E2 = 0x20, CONT_F2 = 0x40;
+using namespace dp;
+
+constexpr int OP_NONE = 255;
+
+// The walk's ops, stored by the lanes together at the next positions.
+struct OpsOut {
+  unsigned char* ops;
+  int lane;
+  int k = 0;
+  __device__ void emit(int op, int ln) {
+    for (int x = lane; x < ln; x += 32) ops[k + x] = static_cast<unsigned char>(op);
+    k += ln;
+  }
+};
 
 __global__ void dp_traceback_kernel(const unsigned char* __restrict__ dirs,
                                     const int* __restrict__ start,
                                     unsigned char* __restrict__ ops, int* __restrict__ out,
                                     int P, int M, int D) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  const int p = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
   if (p >= P) return;
   const int S = D + 1;  // M + N
   const unsigned char* dp = dirs + static_cast<size_t>(p) * D * M;
-  unsigned char* op = ops + static_cast<size_t>(p) * S;
-  int i = start[p], j = start[P + p], mode = TB_H;
-  int k = 0;
+  unsigned char* row = ops + static_cast<size_t>(p) * S;
+  int i = start[p], j = start[P + p];
+  OpsOut sink{row, lane};
   if (i >= 0) {
-    for (; k < S && i >= 0 && j >= 0; ++k) {
-      const int d = min(max(i + j, 0), D - 1);
-      const int byte = dp[static_cast<size_t>(d) * M + min(i, M - 1)];
-      const int src = byte & 7;
-      int e_mode = mode;
-      if (mode == TB_H)
-        e_mode = src == 1 ? TB_E1 : src == 3 ? TB_E2 : src == 2 ? TB_F1 : src == 4 ? TB_F2 : TB_H;
-      const bool is_m = e_mode == TB_H;
-      const bool is_e = e_mode == TB_E1 || e_mode == TB_E2;
-      const int cont_bit = e_mode == TB_E1 ? CONT_E1 : e_mode == TB_E2 ? CONT_E2
-                           : e_mode == TB_F1 ? CONT_F1 : CONT_F2;
-      const bool cont = !is_m && (byte & cont_bit) != 0;
-      op[k] = static_cast<unsigned char>(is_m ? OP_M : (is_e ? OP_D : OP_I));
-      if (is_m || !is_e) --i;
-      if (is_m || is_e) --j;
-      mode = (is_m || !cont) ? TB_H : e_mode;
+    if (i < M && j < S - M) {
+      walk_warp([&](int ii, int jk) -> int { return dp[static_cast<size_t>(ii + jk) * M + ii]; },
+                i, j, sink, lane);
+    } else {
+      int mode = TB_H;
+      for (bool done = j < 0; !done && sink.k < S;) {
+        const int d = min(max(i + j, 0), D - 1);
+        done = tb_step(dp[static_cast<size_t>(d) * M + min(i, M - 1)], i, j, mode, sink);
+      }
     }
   }
-  out[p] = k;
-  out[P + p] = i;
-  out[2 * P + p] = j;
-  for (; k < S; ++k) op[k] = OP_NONE;
+  // the OP_NONE tail: bytes up to a 16-byte boundary, then 16-byte stores
+  const int k = sink.k;
+  const int a = min(S, k + static_cast<int>((16 - (reinterpret_cast<uintptr_t>(row + k) & 15)) & 15));
+  for (int x = k + lane; x < a; x += 32) row[x] = OP_NONE;
+  const int nv = (S - a) >> 4;
+  uint4* v = reinterpret_cast<uint4*>(row + a);
+  for (int x = lane; x < nv; x += 32) v[x] = make_uint4(~0u, ~0u, ~0u, ~0u);
+  for (int x = a + nv * 16 + lane; x < S; x += 32) row[x] = OP_NONE;
+  if (lane == 0) {
+    out[p] = k;
+    out[P + p] = i;
+    out[2 * P + p] = j;
+  }
 }
 
 }  // namespace
@@ -63,8 +91,8 @@ __global__ void dp_traceback_kernel(const unsigned char* __restrict__ dirs,
 // start [2, P] int32 (si, sj); ops [P, D + 1] uint8; out [3, P] int32.
 extern "C" int ma_dp_traceback(const void* dirs, const void* start, void* ops, void* out, int P,
                                int M, int D, void* stream) {
-  const int threads = 128;
-  dp_traceback_kernel<<<(P + threads - 1) / threads, threads, 0,
+  const int warps = max(1, min(4, P / 132));  // warps (problems) per block
+  dp_traceback_kernel<<<(P + warps - 1) / warps, warps * 32, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned char*>(dirs), static_cast<const int*>(start),
       static_cast<unsigned char*>(ops), static_cast<int*>(out), P, M, D);

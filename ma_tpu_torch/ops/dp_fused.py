@@ -19,8 +19,8 @@ the card (the Pallas kernel leaves the first lane of its first tile there).
 C and C' share this contract, so they share the plain version. On the
 card `banded_align_runs` picks the kernel by width (`fused_kernel`): C
 where it takes N (up to 1,024 columns, as its scratch-size query says),
-C' for every wider N, in both modes (past 4,096 columns C' walks each row
-in chunks of 4,096). As in ma_tpu, MA_TPU_DP_V2=1 (read at each call)
+C' for every wider N, in both modes (past 1,024 columns C' walks each row
+in chunks of 1,024 from its band's left edge). As in ma_tpu, MA_TPU_DP_V2=1 (read at each call)
 also sends the widths C takes to C', whose row fits in at most 8 static
 tiles (`use_v2`); ma_tpu's further term PB2 >= 32 sizes TPU VMEM and holds
 for every shape (`_pick_pb_v2` never goes below 32), so it is left out.
@@ -170,7 +170,7 @@ def banded_align_runs_v2(q, t, qlen, tlen, band, *, M: int, N: int,
                          is_global: bool = True, tb_last=None, R: int = MAX_RUNS):
     """Kernel C' on CUDA tensors (any N), the plain version on CPU tensors;
     the contract of banded_align_runs. The problems go in launches whose
-    direction rows (and, past 4,096 columns, the row state C' carries
+    direction rows (and, past 1,024 columns, the row state C' carries
     between chunks) stay within 1 GiB. Launches are tallied per (M, N,
     global or extension) with their problem counts."""
     if q.device.type == "cpu":
@@ -180,8 +180,10 @@ def banded_align_runs_v2(q, t, qlen, tlen, band, *, M: int, N: int,
     q, t, meta_in, runs, meta = _operands(q, t, qlen, tlen, band, tb_last, M, N, R)
     P = q.shape[0]
     # direction rows streamed out by the kernel for its own traceback, each
-    # padded to a 16-byte multiple for the bulk copies; int32 row state per
-    # problem where the row is walked in chunks
+    # padded to a 16-byte multiple for the bulk copies (the kernel writes a
+    # row's in-band span only, and its traceback makes the bytes it reaches
+    # outside it); int32 row state per problem where the row is walked in
+    # chunks
     ldn = -(-N // 16) * 16
     carry_ints = kernels.query("ma_dp_fused_v2_carry_ints", N, ldn)
     step = max(1, 2**30 // (M * ldn + 4 * carry_ints))

@@ -148,7 +148,8 @@ def _dp_problems(rng, P, M, N, is_global, dev):
 def test_dp_fused_v2_kernel(cuda, M, N, is_global):
     """C' against the plain version and, where C takes the width, against C:
     one-warp teams (N = 128), multi-warp teams with named barriers, a width
-    that is not a multiple of 16 (N = 200), and 16 columns per thread."""
+    that is not a multiple of 16 (N = 200), and rows walked in chunks
+    (N = 4,096)."""
     from ma_tpu_torch import kernels
     from ma_tpu_torch.ops.dp import DPParams
     from ma_tpu_torch.ops.dp_fused import (
@@ -172,9 +173,14 @@ def test_dp_fused_v2_kernel(cuda, M, N, is_global):
 
 @pytest.mark.parametrize("N", [128, 768, 2048, 4096, 4224])
 def test_dp_fused_v2_direction_bytes(cuda, N):
-    """Every direction byte C' streams out (rows < qlen, all N columns)
-    against the plain row DP's: 4, 8 and 16 columns per thread, and rows
-    walked in chunks of 4,096 (N = 4,224)."""
+    """The direction bytes C' streams out (rows < qlen, extension mode with
+    z-drop off, so no row is skipped) against the plain row DP's: 4, 8 and
+    rows in registers (N <= 1,024) and walked in chunks (N = 2,048 up).
+    C' writes a row's bytes only for its groups of 4 columns (a thread's
+    columns) that hold an in-band cell; those must equal the plain version's,
+    and every other cell must carry the bits the traceback is given there:
+    E's continuation (0x28) left of the band but at column 0, F's (0x50)
+    right of it but in row 0."""
     from ma_tpu_torch import kernels
     from ma_tpu_torch.ops.dp import DPParams
     from ma_tpu_torch.ops.dp_rows import banded_align_rows
@@ -182,19 +188,84 @@ def test_dp_fused_v2_direction_bytes(cuda, N):
     rng = np.random.default_rng(N)
     P, M = 12, 48
     (q, t, qlen, tlen, band), tb = _dp_problems(rng, P, M, N, False, cuda)
+    qlen[:2], tlen[:2], band[:2] = M, N, 10  # cells left and right of a narrow band
     pr = DPParams()
     meta_in = torch.stack([qlen, tlen, band, tb], 1).contiguous()
     runs = torch.empty((P, 8), dtype=torch.int32, device=cuda)
     meta = torch.empty((8, P), dtype=torch.int32, device=cuda)
-    dirs = torch.empty((P, M, N), dtype=torch.uint8, device=cuda)
-    carry = torch.empty((P, kernels.query("ma_dp_fused_v2_carry_ints", N, N)),
+    ldn = -(-N // 16) * 16
+    dirs = torch.empty((P, M, ldn), dtype=torch.uint8, device=cuda)
+    carry = torch.empty((P, kernels.query("ma_dp_fused_v2_carry_ints", N, ldn)),
                         dtype=torch.int32, device=cuda)
     kernels.DP_FUSED_V2.launch(q, t, meta_in, runs, meta, dirs, carry if carry.numel() else 0,
-                               P, M, N, N, 8, *pr, 30, 0)
-    want = banded_align_rows(q, t, qlen, tlen, band, pr, 30, False).dirs
+                               P, M, N, ldn, 8, *pr, -1, 0)
+    want = banded_align_rows(q, t, qlen, tlen, band, pr, -1, False).dirs
     torch.cuda.synchronize()
-    rows = torch.arange(M, device=cuda)[None, :, None] < qlen[:, None, None]
-    assert torch.equal(torch.where(rows, dirs, 0), torch.where(rows, want, 0))
+    cpt = 4
+    i = torch.arange(M, device=cuda)[None, :, None]
+    g = torch.arange(N, device=cuda)[None, None, :] // cpt * cpt  # each column's group
+    w = band[:, None, None]
+    lo, hi = (i - w).clamp(min=0), torch.minimum(tlen[:, None, None] - 1, i + w)
+    rows = i < qlen[:, None, None]
+    stored = rows & (g + cpt - 1 >= lo) & (g <= hi)
+    got = dirs[:, :, :N]
+    assert torch.equal(torch.where(stored, got, 0), torch.where(stored, want, 0))
+    j = torch.arange(N, device=cuda)[None, None, :]
+    left = rows & (g + cpt - 1 < lo) & (j > 0)
+    right = rows & (g > hi) & (i > 0)
+    assert bool(((want & 0x28) == 0x28)[left].all()) and bool(((want & 0x50) == 0x50)[right].all())
+    assert bool(left.any()) and bool(right.any())
+
+
+@pytest.mark.parametrize("M,N,is_global,band,zdrop,P", [
+    (64, 8320, False, 5000, 30, 24),  # a band wider than a chunk of 1,024 columns
+    (128, 2048, False, 1500, 100, 24),
+    (4500, 8320, False, 300, 200, 4),  # rows whose band starts past the first chunks
+    (256, 4096, False, 512, 200, 48),  # chip_smoke.py's wide case
+    (64, 768, True, 20, -1, 40),  # global, |m - n| > band: every cell computed
+    (48, 4224, True, 30, -1, 12),  # the same, rows in chunks
+    (64, 200, False, 64, 0, 40),  # z-drops in the first rows
+    (64, 8320, False, 64, 0, 12),
+    (32, 128, True, 8, 5, 40),  # global with z-drop, a narrow band
+])
+def test_dp_fused_v2_band_cases(cuda, M, N, is_global, band, zdrop, P):
+    """C' where its band skipping decides (groups of columns left or right
+    of the band computed nothing, chunks of a row outside it never
+    visited), exact against the plain version and, where C takes the width,
+    C: bands wider than a chunk, bands that leave the first chunks behind,
+    global problems whose end cell lies outside the band (nothing is
+    skipped for them; every third one's band is widened to hold it), z-drops
+    in the first rows (the problem stops the row after), last-row
+    tracebacks (every third extension problem)."""
+    from ma_tpu_torch import kernels
+    from ma_tpu_torch.ops.dp import DPParams
+    from ma_tpu_torch.ops.dp_fused import (
+        banded_align_runs, banded_align_runs_plain, banded_align_runs_v2,
+    )
+
+    rng = np.random.default_rng(M + N + band)
+    (q, t, qlen, tlen, _), tb = _dp_problems(rng, P, M, N, is_global, cuda)
+    if M > 1000:
+        qlen[1:] = M
+    bands = torch.full_like(qlen, band)
+    if is_global:  # every third problem's end cell inside the band
+        near = (tlen - qlen).abs() <= band
+        bands = torch.where(torch.arange(P, device=cuda) % 3 == 0,
+                            (tlen - qlen).abs() + band, bands)
+        assert bool((~near).any())
+    kw = dict(M=M, N=N, params=DPParams(), zdrop=zdrop, is_global=is_global, tb_last=tb,
+              R=max(32, M // 4))
+    before = kernels.DP_FUSED_V2.launches
+    got = banded_align_runs_v2(q, t, qlen, tlen, bands, **kw)
+    torch.cuda.synchronize()
+    assert kernels.DP_FUSED_V2.launches == before + 1
+    want = banded_align_runs_plain(q, t, qlen, tlen, bands, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    if N <= 1024:
+        c = banded_align_runs(q, t, qlen, tlen, bands, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, c))
+    meta = want[1].cpu().numpy()
+    assert zdrop != 0 or meta[4].mean() > 0.5  # most problems z-drop early
 
 
 @pytest.mark.parametrize("M,N", [(32, 128), (64, 128), (256, 128), (64, 768), (256, 768),
@@ -332,6 +403,109 @@ def test_dp_wavefront_and_traceback_kernels(cuda, is_global, zdrop, M, N, P, ban
                                                                             got.max_j)))
 
 
+def _random_dirs(rng, P, M, N, p_diag, p_cont):
+    """Direction bytes [P, M+N-1, M] for the traceback alone: source 0 (the
+    diagonal) with probability p_diag, else 1-7; each continuation bit set
+    with probability p_cont, so gap runs last about 1 / (1 - p_cont) cells."""
+    shape = (P, M + N - 1, M)
+    src = np.where(rng.random(shape) < p_diag, 0, rng.integers(1, 8, shape))
+    bits = (rng.random(shape + (4,)) < p_cont) @ np.array([0x08, 0x10, 0x20, 0x40])
+    return (src | bits).astype(np.uint8)
+
+
+def _longest_gap_run(ops, n_ops):
+    """The longest run of I or D ops over the problems' op streams."""
+    best = 0
+    for row, n in zip(ops, n_ops):
+        run, last = 0, -1
+        for op in row[:n]:
+            run = run + 1 if op == last else 1
+            last = op
+            if op != 0:
+                best = max(best, run)
+    return best
+
+
+@pytest.mark.parametrize("P,M,N,p_diag,p_cont", [
+    (64, 37, 50, 0.9, 0.97), (64, 100, 33, 0.5, 0.995), (40, 200, 300, 0.97, 0.995),
+    (33, 1, 70, 0.5, 0.99), (33, 70, 1, 0.5, 0.99), (300, 64, 96, 0.95, 0.99),
+])
+def test_traceback_kernel_on_random_bytes(cuda, P, M, N, p_diag, p_cont):
+    """The traceback kernel against its plain version on every output, on
+    random direction bytes: diagonal runs of tens of cells, gap runs longer
+    than 32 and 64 cells, M not a multiple of 4 or 32 (37, 1, 70), a single
+    row or column, paths that leave the matrix through row 0 and column 0
+    in every mode, starts at the matrix's corners and edges, si < 0 and
+    sj < 0 (nothing walked) and starts outside the matrix (the plain
+    version's clamped walk); P = 300 takes blocks of 2 warps."""
+    from ma_tpu_torch import kernels
+    from ma_tpu_torch.ops import dp_wavefront as W
+
+    rng = np.random.default_rng(P * M + N)
+    dirs = _random_dirs(rng, P, M, N, p_diag, p_cont)
+    si, sj = rng.integers(0, M, P), rng.integers(0, N, P)
+    si[:8] = M - 1, -1, 0, M - 1, 3, M + 2, M - 1, M // 2
+    sj[:8] = N - 1, 5, N - 1, 0, -1, N + 4, N + 9, 0
+    d = lambda a, dt=torch.int32: torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                                                  device=cuda)
+    args = (d(dirs, torch.uint8), d(si), d(sj))
+    before = kernels.DP_TRACEBACK.launches
+    got = W.traceback_dirs(*args)
+    torch.cuda.synchronize()
+    assert kernels.DP_TRACEBACK.launches == before + 1
+    want = W.traceback_dirs_plain(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    if p_cont >= 0.99 and min(M, N) > 1:
+        assert _longest_gap_run(want[0].cpu().numpy(), want[1].cpu().numpy()) > 64
+
+
+def _indel_problems(rng, P, M, N, is_global, dev):
+    """Targets that are copies of the queries (3% substitutions) with a
+    deletion of 40 and an insertion of 70 bases in every other problem, so
+    real gap runs exceed 32 and 64 cells; random flanks after."""
+    q = rng.integers(0, 4, (P, M))
+    t = rng.integers(0, 4, (P, N))
+    for p in range(P):
+        ts = np.where(rng.random(M) < 0.03, rng.integers(0, 4, M), q[p])
+        if p % 2 == 0:
+            a = int(rng.integers(M // 8, M // 2 - 40))
+            b = a + 40 + int(rng.integers(10, M // 3))
+            ts = np.concatenate([ts[:a], ts[a + 40 :b], rng.integers(0, 4, 70), ts[b:]])
+        t[p, : min(N, len(ts))] = ts[:N]
+    qlen = np.full(P, M) if is_global else rng.integers(M // 2, M + 1, P)
+    tlen = np.full(P, N) if is_global else rng.integers(N // 2, N + 1, P)
+    d = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.uint8
+                                  if a.ndim == 2 else torch.int32, device=dev)
+    return d(q), d(t), d(qlen), d(tlen)
+
+
+@pytest.mark.parametrize("P,M,N,is_global", [
+    (256, 1024, 4096, False), (128, 512, 512, True), (32, 401, 400, True), (32, 376, 372, True),
+    (48, 300, 340, False),
+])
+def test_traceback_kernel_on_wavefront_output(cuda, P, M, N, is_global):
+    """The traceback kernel on kernel D's bytes against its plain version,
+    every output: chip_smoke.py's two shapes (P = 256, 1024 x 4096
+    extension; P = 128, 512 x 512 global), the long pass's own inversion
+    windows (P = 32 at about 400 x 400), with deletions of 40 and
+    insertions of 70 bases (gap runs longer than 32 and 64 cells), band
+    512; every ninth problem skipped (si < 0)."""
+    from ma_tpu_torch.ops import dp_wavefront as W
+    from ma_tpu_torch.ops.dp import DPParams
+
+    rng = np.random.default_rng(P + M + N)
+    q, t, qlen, tlen = _indel_problems(rng, P, M, N, is_global, cuda)
+    res = W.banded_align_wavefront(q, t, qlen, tlen, torch.full_like(qlen, 512), DPParams(),
+                                   -1 if is_global else 200, is_global)
+    si, sj = (qlen - 1, tlen - 1) if is_global else (res.max_i, res.max_j)
+    si = torch.where(torch.arange(P, device=cuda) % 9 == 4, -1, si)
+    got = W.traceback_dirs(res.dirs, si, sj)
+    torch.cuda.synchronize()
+    want = W.traceback_dirs_plain(res.dirs, si, sj)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert _longest_gap_run(want[0].cpu().numpy(), want[1].cpu().numpy()) > 64
+
+
 @pytest.mark.parametrize("dtype", [torch.int8, torch.int32])
 def test_dp_wavefront_negative_codes(cuda, dtype):
     """Kernel D scores codes as its plain version does: every code >= 4 an N,
@@ -388,8 +562,8 @@ def test_kernels_count_launches(cuda):
 def test_wide_fused_problems_take_c_prime(cuda, monkeypatch, N, is_global):
     """Past kernel C's 1,024 columns banded_align_runs launches C' with
     MA_TPU_DP_V2 unset, tallied per (M, N, mode), exact against the plain
-    version: rows in registers up to 4,096 columns, in chunks of 4,096
-    past that."""
+    version: rows walked in chunks of 1,024 columns from the band's left
+    edge."""
     from ma_tpu_torch import kernels
     from ma_tpu_torch.ops.dp import DPParams
     from ma_tpu_torch.ops.dp_fused import banded_align_runs, banded_align_runs_plain

@@ -335,8 +335,8 @@ def test_fused_kernel_routing(monkeypatch, v2, N):
     (False, 5, 24, 6), (False, 200, 16, 4), (True, -1, 24, 5), (True, 30, 16, 4),
 ])
 def test_fused_past_4096_columns(is_global, zdrop, M, P):
-    """Fused problems 4,224 columns wide (C' walks such rows in chunks of
-    4,096 on the card) through the port's banded_align_runs against
+    """Fused problems 4,224 columns wide (C' walks such rows in chunks on
+    the card) through the port's banded_align_runs against
     ma_tpu's tiled `_kernel` in interpret mode: extensions with z-drop and
     last-row tracebacks, and global problems with and without z-drop (those
     without went through kernel D on the card before)."""
@@ -352,6 +352,26 @@ def test_fused_past_4096_columns(is_global, zdrop, M, P):
     meta = _compare_on((q, t, qlen, tlen, band, tb_last), M, N, is_global, zdrop,
                        TD.run_capacity(M))
     if not is_global and zdrop == 5:
+        assert meta[4].any()
+
+
+@pytest.mark.parametrize("M,N,is_global,zdrop,band,P", [
+    (24, 4224, True, -1, 30, 5), (32, 768, True, 30, 20, 12), (24, 4224, False, 30, 5000, 4),
+    (32, 200, False, 0, 64, 12),
+])
+def test_fused_band_edges(M, N, is_global, zdrop, band, P):
+    """The cases C''s band skipping singles out on the card, through the
+    port's banded_align_runs (its plain version) against ma_tpu's fused
+    kernel in interpret mode: global problems whose end cell lies outside a
+    narrow band (|m - n| > band: every cell computed), a band wider than
+    one chunk of C''s rows (1,024 columns), z-drops in the first rows."""
+    q, t, qlen, tlen, _, tb_last = _problems(N + M + band, P, M, N, is_global)
+    if is_global:
+        tlen[: P - 1] = np.minimum(N, qlen[: P - 1] + band + 1 + np.arange(P - 1) * 7)
+        assert (np.abs(tlen - qlen) > band).sum() >= P - 1
+    meta = _compare_on((q, t, qlen, tlen, np.full(P, band, np.int32), tb_last), M, N,
+                       is_global, zdrop, TD.run_capacity(M))
+    if zdrop == 0:
         assert meta[4].any()
 
 

@@ -132,6 +132,80 @@ def test_traceback_matches_traceback_device_and_one(is_global, zdrop):
                                                                            rem_j)
 
 
+def _random_dirs(rng, P, M, N, p_diag, p_cont):
+    """Direction bytes [P, M+N-1, M] for the traceback alone: source 0 (the
+    diagonal) with probability p_diag, else 1-7; each continuation bit set
+    with probability p_cont, so gap runs last about 1 / (1 - p_cont) cells."""
+    shape = (P, M + N - 1, M)
+    src = np.where(rng.random(shape) < p_diag, 0, rng.integers(1, 8, shape))
+    bits = (rng.random(shape + (4,)) < p_cont) @ np.array([0x08, 0x10, 0x20, 0x40])
+    return (src | bits).astype(np.uint8)
+
+
+def _longest_gap_run(ops, n_ops):
+    """The longest run of I or D ops over the problems' op streams."""
+    best = 0
+    for row, n in zip(ops, n_ops):
+        run, last = 0, -1
+        for op in row[:n]:
+            run = run + 1 if op == last else 1
+            last = op
+            if op != TD.OP_M:
+                best = max(best, run)
+    return best
+
+
+@pytest.mark.parametrize("P,M,N,p_diag,p_cont", [
+    (12, 37, 120, 0.8, 0.995), (12, 70, 33, 0.5, 0.995), (8, 1, 40, 0.5, 0.99),
+])
+def test_traceback_long_runs_match_traceback_device(P, M, N, p_diag, p_cont):
+    """The cases the warp-per-problem traceback kernel singles out, through
+    the port's traceback (its plain version on the CPU) and ma_tpu's
+    traceback_device: random direction bytes with diagonal runs of tens of
+    cells and gap runs longer than a warp (32) and than 64 cells, paths
+    that leave the matrix through a run at row 0 or column 0, M not a
+    multiple of 4 or 32, starts at the corners and edges, si < 0."""
+    rng = np.random.default_rng(P + M + N)
+    dirs = _random_dirs(rng, P, M, N, p_diag, p_cont)
+    si = rng.integers(0, M, P).astype(np.int32)
+    sj = rng.integers(0, N, P).astype(np.int32)
+    si[:4] = M - 1, -1, 0, M - 1
+    sj[:4] = N - 1, 5, N - 1, 0
+    want = JD.traceback_device(jnp.asarray(dirs), jnp.asarray(si), jnp.asarray(sj))
+    got = traceback_dirs(*_torch(dirs, si, sj))
+    for w, g in zip(want, got):
+        assert np.array_equal(np.asarray(w), g.numpy())
+    if M > 1:
+        assert _longest_gap_run(got[0].numpy(), got[1].numpy()) > 32
+
+
+@pytest.mark.parametrize("is_global,zdrop", [(True, -1), (False, 200)])
+def test_traceback_of_long_gaps_matches_traceback_device(is_global, zdrop):
+    """ma_tpu's banded_align + traceback_device against the port's
+    wavefront DP + traceback on problems with a 40-base deletion and a
+    70-base insertion: real gap runs longer than 32 and 64 cells."""
+    rng = np.random.default_rng(21 + int(is_global))
+    P, M, N = 6, 160, 200
+    q = rng.integers(0, 4, (P, M)).astype(np.uint8)
+    t = rng.integers(0, 4, (P, N)).astype(np.uint8)
+    for p in range(P):
+        ts = np.where(rng.random(M) < 0.03, rng.integers(0, 4, M), q[p])
+        a = int(rng.integers(20, 40))
+        ts = np.concatenate([ts[:a], ts[a + 40 : a + 70], rng.integers(0, 4, 70), ts[a + 70 :]])
+        t[p, : min(N, len(ts))] = ts[:N]
+    qlen = np.full(P, M, np.int32)
+    tlen = np.full(P, N if is_global else N - 10, np.int32)
+    band = np.full(P, 128, np.int32)
+    ref = JD.banded_align(q, t, qlen, tlen, band, JD.DPParams(), zdrop=zdrop, is_global=is_global)
+    got = banded_align_wavefront(*_torch(q, t, qlen, tlen, band), TD.DPParams(), zdrop, is_global)
+    si, sj = (qlen - 1, tlen - 1) if is_global else (np.asarray(ref.max_i), np.asarray(ref.max_j))
+    want = JD.traceback_device(ref.dirs, jnp.asarray(si), jnp.asarray(sj))
+    tb = traceback_dirs(got.dirs, *_torch(np.asarray(si, np.int32), np.asarray(sj, np.int32)))
+    for w, g in zip(want, tb):
+        assert np.array_equal(np.asarray(w), g.numpy())
+    assert _longest_gap_run(tb[0].numpy(), tb[1].numpy()) > 64
+
+
 @pytest.fixture
 def anti_diagonal_ma_tpu(monkeypatch):
     """ma_tpu's banded_align_traceback under the reference setting
