@@ -49,7 +49,30 @@ Phases (any failure raises and exits non-zero before the last line):
      to the C pass); one pass of the Illumina preset (SMEMs, placement >=
      99%); the first 512 reads of both presets on device="cpu" must give
      byte-identical SAM;
-  7. long reads: scripts/long_read_bench.py's workload (256 reads of 20 kb
+  7. paired reads: 4,096 FR pairs of 2 x 150 bp over the same genome
+     (insert 400 +- 30, 1% substitutions, default_rng(2718)) through
+     PairedAligner(Aligner(device="cuda")) under the Illumina Paired preset
+     (SMEMs) and under Default with "Use Paired Reads" (maxSpan, the
+     command line's -m): pairs/s (median of 3 passes at a batch of 4,096
+     pairs after a warm-up, then one pass of 1,024 pairs at the command
+     line's batch of 256), the share of pairs with both primary records
+     within 10 bp of their simulated starts, the share of primary records
+     flagged properly paired, and the launches of A, B, C in the counted
+     passes (none may be 0); the first 256 pairs on device="cpu" must give
+     byte-identical SAM;
+  8. command line: the genome as FASTA; `python -m ma_tpu_torch.cli
+     --Create_Index` in a subprocess (timed), then three runs in
+     subprocesses on the card: -m on 512 pairs (Default preset), minimizers
+     with "Minimizers - SDUST Threshold" 20 on 512 reads with low-complexity
+     spans planted in a quarter of them, and minimizers with NGMLR tags on
+     the same reads; each run's SAM must equal the in-process CPU port's on
+     the same files and index (the @PG line included, `--Device` left out
+     of it), and no subprocess may load a jax or ma_tpu module (python -X
+     importtime lists every import); then, in this process on the card,
+     4,096 reads without planted spans: the minimizer pass, the SDUST pass
+     and the NGMLR (object path) pass, reads/s each (median of 3 after a
+     warm-up) with the launches of A, B, C (none may be 0);
+  9. long reads: scripts/long_read_bench.py's workload (256 reads of 20 kb
      over a random 10 Mbp genome, 1% substitutions, 2% insertions, 2%
      deletions, odd reads reverse complemented, default_rng(4242)) with a
      200 bp inverted stretch planted in the middle of every fourth read,
@@ -64,11 +87,11 @@ Phases (any failure raises and exits non-zero before the last line):
      and at 2 lanes a thread (the outputs must agree), and the traceback
      kernel on the inputs of its launches there; then the first 4 long
      reads on device="cpu" must give byte-identical SAM;
-  8. long-read overflow rescue: 5 kb and 10 kb reads across a tandem repeat
+ 10. long-read overflow rescue: 5 kb and 10 kb reads across a tandem repeat
      overflow their SoC windows; the rescue's stage sweeps rows of 4,096 and
      8,192 seeds through kernel B, held against its plain version there, and
      each read's primary record must overlap the interval it came from;
-  9. wide fused problems: 40 reads of 500 bp ending in 256-base extensions,
+ 11. wide fused problems: 40 reads of 500 bp ending in 256-base extensions,
      Bandwidth for Extensions 768 and Padding 1,100, so the Python NW path's
      fused bucket runs 1,152 columns wide, then 4,000 and 4,400, so it runs
      4,352 wide: with MA_TPU_DP_V2 unset, C' must launch past 1,024 (then
@@ -86,7 +109,7 @@ single PyTorch call computes any of these kernels' functions,
 so `library_ms` is null.
 
 The line before the last is the kernels' JSON record (each kernel's
-launches summed over the counted main-path passes of phases 5-7, each read
+launches summed over the counted main-path passes of phases 5-9, each read
 with the counts set to 0 just before it; "soc_sweep_long", A's second timed
 case, with the long passes' launches of A); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -98,10 +121,12 @@ from __future__ import annotations
 import argparse
 import io
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -115,6 +140,11 @@ PASSES = 3
 LONG_READS, LONG_LEN, LONG_GENOME_BP, LONG_BATCH = 256, 20_000, 10_000_000, 8192
 INV_LEN, INV_EVERY = 200, 4
 LONG_PLACE_TOL = 200
+PAIRS, INSERT, INSERT_SD = 4096, 400, 30  # 2 x READ_LEN bp FR pairs
+PAIRED_BATCH = 4096  # pairs a flush in the timed passes
+CLI_BATCH = 256  # the command line's batch (ma_tpu's default: it sets the SAM's order)
+CLI_READS = 512  # reads (and pairs) of each command-line run
+SDUST_T = 20
 LONG_CHECK_READS = 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 INT32_LANES_PER_SM = 64
@@ -1112,7 +1142,7 @@ def fmd_stage_split(al, reads) -> str:
             f"harmonization + packing {t3 - t2:.3f} s")
 
 
-def fmd_phase(dev, pack, reads, starts) -> dict:
+def fmd_phase(dev, pack, fmd, reads, starts) -> dict:
     """The FMD seeding path on `dev`: the Default preset (maxSpan) counted
     over PASSES passes after a warm-up, one pass under the stage timer, one
     pass under MA_TPU_DP_V2=1 (C' instead of C, same SAM), one pass of the
@@ -1124,15 +1154,9 @@ def fmd_phase(dev, pack, reads, starts) -> dict:
     import torch
 
     from ma_tpu_torch.config.parameters import ParameterSetManager
-    from ma_tpu_torch.index.fmd_index import FMDIndex
     from ma_tpu_torch.utils.profile import AnalyzeRuntimes
     from ma_tpu_torch import kernels
     from ma_tpu_torch.pipeline.aligner import Aligner
-
-    t0 = time.perf_counter()
-    fmd = FMDIndex.build(pack)
-    print(f"fmd: index of {fmd.n} text positions built in {time.perf_counter() - t0:.1f} s",
-          flush=True)
 
     def aligner(preset, device):
         mgr = ParameterSetManager()
@@ -1230,6 +1254,314 @@ def fmd_phase(dev, pack, reads, starts) -> dict:
     return total
 
 
+def simulate_pairs(pack, n_pairs: int, seed: int):
+    """FR pairs over the pack's (one-contig) genome: 2 x READ_LEN bp, insert
+    N(INSERT, INSERT_SD) clipped to 300-500, 1% substitutions, mate 2
+    reverse complemented. Returns (pairs, starts, inserts)."""
+    from ma_tpu_torch.containers.nucseq import NucSeq, revcomp_codes
+
+    genome = np.asarray(pack.codes, np.uint8)
+    rng = np.random.default_rng(seed)
+
+    def mutate(codes):
+        codes = codes.copy()
+        for j in np.nonzero(rng.random(len(codes)) < 0.01)[0]:
+            codes[j] = (codes[j] + rng.integers(1, 4)) % 4
+        return codes
+
+    pairs, starts, inserts = [], [], []
+    for i in range(n_pairs):
+        ins = int(np.clip(rng.normal(INSERT, INSERT_SD), 300, 500))
+        p = int(rng.integers(0, len(genome) - ins))
+        m1 = mutate(genome[p : p + READ_LEN])
+        m2 = revcomp_codes(mutate(genome[p + ins - READ_LEN : p + ins]))
+        pairs.append((NucSeq(m1, name=f"q{i}"), NucSeq(m2, name=f"q{i}")))
+        starts.append(p)
+        inserts.append(ins)
+    return pairs, np.asarray(starts), np.asarray(inserts)
+
+
+def paired_placement(sam: str, starts: np.ndarray, inserts: np.ndarray):
+    """(share of pairs whose two primary records are both within PLACE_TOL
+    of their simulated starts, share of primary records flagged properly
+    paired)."""
+    near = set()
+    proper = n_primary = 0
+    for line in sam.splitlines():
+        if line.startswith("@"):
+            continue
+        f = line.split("\t", 4)
+        flag = int(f[1])
+        if flag & 0x904:
+            continue
+        n_primary += 1
+        proper += bool(flag & 0x2)
+        i, first = int(f[0][1:]), bool(flag & 0x40)
+        want = starts[i] if first else starts[i] + inserts[i] - READ_LEN
+        if abs(int(f[3]) - 1 - int(want)) <= PLACE_TOL:
+            near.add((i, first))
+    both = sum((i, True) in near and (i, False) in near for i in range(len(starts)))
+    return both / len(starts), proper / max(n_primary, 1)
+
+
+def paired_params(preset: str):
+    """The Illumina Paired preset, or Default with "Use Paired Reads" (the
+    command line's -m)."""
+    from ma_tpu_torch.config.parameters import ParameterSetManager
+
+    mgr = ParameterSetManager()
+    mgr.set_selected(preset)
+    mgr.selected.set("Use Paired Reads", True)
+    return mgr
+
+
+def run_pairs(pa, pairs, batch: int):
+    """PairedAligner `pa` over `pairs` at `batch` pairs a flush: (SAM, host
+    seconds, ending in a device synchronize)."""
+    import torch
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    n = pa.align_to_sam(iter(pairs), buf, batch_size=batch)
+    if pa.aligner.device.type == "cuda":
+        torch.cuda.synchronize()
+    if n != 2 * len(pairs):
+        raise AssertionError(f"PairedAligner.align_to_sam returned {n} of {2 * len(pairs)} reads")
+    return buf.getvalue(), time.perf_counter() - t0
+
+
+def paired_phase(dev, pack, fmd) -> dict:
+    """Paired reads on `dev` under Illumina Paired (SMEMs) and Default + -m
+    (maxSpan): pairs/s at PAIRED_BATCH (median of PASSES after a warm-up)
+    and at CLI_BATCH, placement, proper-pair flags, launches of A, B, C per
+    pass; the first CLI_BATCH pairs against the CPU port. Returns each
+    kernel's launches in the counted passes."""
+    import torch
+
+    from ma_tpu_torch import kernels
+    from ma_tpu_torch.pipeline.aligner import Aligner
+    from ma_tpu_torch.pipeline.paired import PairedAligner
+
+    t0 = time.perf_counter()
+    pairs, starts, inserts = simulate_pairs(pack, PAIRS, seed=2718)
+    print(f"paired workload: {len(pairs)} pairs of 2 x {READ_LEN} bp, insert {INSERT} +- "
+          f"{INSERT_SD} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    total: dict = {k.name: 0 for k in kernels.KERNELS}
+    path = ("soc_sweep", "linesweep", "dp_fused")
+    for label, preset in (("Illumina Paired (SMEMs)", "IlluminaPaired"),
+                          ("Default + -m (maxSpan)", "Default")):
+        def paired(device):
+            return PairedAligner(Aligner(pack, paired_params(preset), device=device, fmd=fmd))
+
+        pa = paired(dev)
+        _, wall = run_pairs(pa, pairs[:CLI_BATCH], PAIRED_BATCH)
+        print(f"paired {label} warm-up: {wall:.1f} s", flush=True)
+        reset_launches()
+        walls, sam = [], ""
+        for _ in range(PASSES):
+            sam, wall = run_pairs(pa, pairs, PAIRED_BATCH)
+            walls.append(wall)
+        launches = read_launches(kernels.KERNELS)
+        for name, v in launches.items():
+            total[name] += v
+        pps = len(pairs) / statistics.median(walls)
+        both, proper = paired_placement(sam, starts, inserts)
+        per_pass = {k: launches[k] / PASSES for k in path}
+        sub = pairs[:1024]
+        _, wall = run_pairs(pa, sub, CLI_BATCH)
+        print(f"paired {label}: walls {['%.3f' % w for w in walls]} s, {pps:.1f} pairs/s "
+              f"(median, {PAIRED_BATCH} pairs a flush), {len(sub) / wall:.1f} pairs/s on "
+              f"{len(sub)} pairs at the command line's {CLI_BATCH} a flush; both mates placed "
+              f"{both:.4%}, properly paired flag {proper:.4%}; launches per pass "
+              f"{json.dumps(per_pass)}", flush=True)
+        if min(pps, both, proper, *per_pass.values()) == 0:
+            raise AssertionError(f"paired {label}: a zero among pairs/s {pps}, placement {both}, "
+                                 f"proper-pair rate {proper}, launches {per_pass}")
+        sub = pairs[:CLI_BATCH]
+        gpu_sam, _ = run_pairs(pa, sub, CLI_BATCH)
+        cpu_sam, wall = run_pairs(paired(torch.device("cpu")), sub, CLI_BATCH)
+        print(f"paired cross-check {label}: {len(sub)} pairs, CPU port {wall:.1f} s, SAM "
+              f"{len(cpu_sam)} bytes, identical={gpu_sam == cpu_sam}", flush=True)
+        if gpu_sam != cpu_sam:
+            raise AssertionError(f"paired {label}: GPU and CPU SAM differ at line "
+                                 f"{first_diff(gpu_sam, cpu_sam)}")
+    return total
+
+
+def low_complexity_reads(pack, n_reads: int, seed: int, every: int):
+    """Reads of READ_LEN bp from the genome at 1% substitutions, odd ones
+    reverse complemented; with every > 0, every `every`th has a
+    low-complexity span (a 1-4 base unit repeated over 30-60 bases) planted
+    in its middle. The host's SDUST takes 0.01-0.4 s for such a read
+    (ops/sdust.py, ma_tpu's Python), 0.2 ms for one without."""
+    from ma_tpu_torch.containers.nucseq import NucSeq, revcomp_codes
+
+    genome = np.asarray(pack.codes, np.uint8)
+    rng = np.random.default_rng(seed)
+    reads = []
+    for i in range(n_reads):
+        p = int(rng.integers(0, len(genome) - READ_LEN))
+        codes = genome[p : p + READ_LEN].copy()
+        for j in np.nonzero(rng.random(READ_LEN) < 0.01)[0]:
+            codes[j] = (codes[j] + rng.integers(1, 4)) % 4
+        if every and i % every == 0:
+            ln = int(rng.integers(30, 61))
+            s0 = int(rng.integers(20, READ_LEN - ln - 20))
+            codes[s0 : s0 + ln] = np.resize(rng.integers(0, 4, int(rng.integers(1, 5))), ln)
+        if i % 2:
+            codes = revcomp_codes(codes)
+        reads.append(NucSeq(codes, name=f"s{i}"))
+    return reads
+
+
+def write_fastq(path: str, reads) -> None:
+    from ma_tpu_torch.containers.nucseq import decode_seq
+
+    with open(path, "w") as f:
+        for r in reads:
+            f.write(f"@{r.name}\n{decode_seq(r.codes)}\n+\n{'I' * len(r)}\n")
+
+
+def run_cli(args, timeout: int = 600):
+    """`python -X importtime -m ma_tpu_torch.cli *args` in a subprocess:
+    (seconds, stderr without the import lines). Fails on a non-zero exit
+    or a jax or ma_tpu module among its imports."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-X", "importtime", "-m", "ma_tpu_torch.cli", *args],
+                         capture_output=True, text=True, timeout=timeout,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    lines = res.stderr.splitlines()
+    mods = [ln.rsplit("|", 1)[1].strip() for ln in lines if ln.startswith("import time:")]
+    rest = "\n".join(ln for ln in lines if not ln.startswith("import time:"))
+    if res.returncode != 0:
+        raise AssertionError(f"ma_tpu_torch.cli {args[:2]} exited {res.returncode}:\n"
+                             f"{rest[-3000:]}")
+    bad = sorted({m for m in mods if m.split(".")[0] in ("jax", "ma_tpu")})
+    if bad:
+        raise AssertionError(f"ma_tpu_torch.cli {args[:2]} imported {bad}")
+    if "ma_tpu_torch.config.parameters" not in mods:
+        raise AssertionError("python -X importtime listed none of the port's imports")
+    return wall, rest
+
+
+def flag_params(flags):
+    """The Default preset with `flags` (--Name value pairs, a bare last
+    --Name for a boolean) set on it."""
+    from ma_tpu_torch.config.parameters import ParameterSetManager
+
+    mgr = ParameterSetManager()
+    for i in range(0, len(flags), 2):
+        mgr.selected[flags[i][2:]].set(flags[i + 1] if i + 1 < len(flags) else True)
+    return mgr
+
+
+def cli_phase(dev, pack) -> dict:
+    """The command line in subprocesses (index, paired -m, SDUST, NGMLR
+    tags), each SAM against the in-process CPU port's; then the minimizer,
+    SDUST and NGMLR passes on the card in this process. Returns each
+    kernel's launches in the counted passes."""
+    import torch
+
+    from ma_tpu_torch import kernels
+    from ma_tpu_torch.containers.nucseq import decode_seq
+    from ma_tpu_torch.containers.pack import Pack
+    from ma_tpu_torch.index.fmd_index import FMDIndex
+    from ma_tpu_torch.io.fasta import read_reads, zip_paired
+    from ma_tpu_torch.pipeline.aligner import Aligner
+    from ma_tpu_torch.pipeline.paired import PairedAligner
+
+    pairs, _, _ = simulate_pairs(pack, CLI_READS, seed=1618)
+    reads = low_complexity_reads(pack, BATCH, seed=37, every=0)
+    total: dict = {k.name: 0 for k in kernels.KERNELS}
+    with tempfile.TemporaryDirectory() as d:
+        fa, idx = os.path.join(d, "genome.fa"), os.path.join(d, "bench")
+        seq = decode_seq(np.asarray(pack.codes, np.uint8))
+        with open(fa, "w") as f:
+            f.write(">bench\n" + "\n".join(seq[i : i + 80] for i in range(0, len(seq), 80))
+                    + "\n")
+        write_fastq(os.path.join(d, "r1.fq"), [p[0] for p in pairs])
+        write_fastq(os.path.join(d, "r2.fq"), [p[1] for p in pairs])
+        write_fastq(os.path.join(d, "s.fq"), low_complexity_reads(pack, CLI_READS, seed=31,
+                                                                  every=4))
+        wall, _ = run_cli(["--Create_Index", f"{fa},{d},bench"])
+        print(f"cli --Create_Index: {wall:.1f} s for {len(seq)} bp (subprocess, start-up "
+              f"included)", flush=True)
+
+        sdust = ["--Seeding_Technique", "minimizers", "--Minimizers_-_SDUST_Threshold",
+                 str(SDUST_T)]
+        ngmlr = ["--Seeding_Technique", "minimizers", "--Emulate_NGMLR's_tag_output"]
+        runs = {
+            "paired": (["-x", idx, "-i", f"{d}/r1.fq", "-m", f"{d}/r2.fq"], []),
+            "sdust": (["-p", "Default", "-x", idx, "-i", f"{d}/s.fq"], sdust),
+            "ngmlr": (["-x", idx, "-i", f"{d}/s.fq"], ngmlr),
+        }
+        pack_i, fmd_i = Pack.load(idx), FMDIndex.load(idx)
+        for name, (io_flags, flags) in runs.items():
+            args = io_flags + ["-o", f"{d}/{name}.sam"] + flags
+            wall, err = run_cli(args + ["--Device", "cuda"])
+            with open(f"{d}/{name}.sam") as f:
+                card = f.read()
+            mgr = flag_params(flags)
+            mgr.selected.set("Use Paired Reads", name == "paired")  # -m sets it
+            al = Aligner(pack_i, mgr, device="cpu", fmd=fmd_i, index_prefix=idx)
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            cmd = "ma-tpu " + " ".join(args)  # the @PG command, --Device left out
+            if name == "paired":
+                PairedAligner(al).align_to_sam(
+                    zip_paired(read_reads(f"{d}/r1.fq"), read_reads(f"{d}/r2.fq")), buf, cmd=cmd)
+            else:
+                al.align_to_sam(read_reads(f"{d}/s.fq"), buf, cmd=cmd)
+            cpu_wall = time.perf_counter() - t0
+            done = re.search(r"done\. .*", err)
+            print(f"cli {name}: subprocess {wall:.1f} s ({done.group(0) if done else err[-200:]}), "
+                  f"CPU port in process {cpu_wall:.1f} s, SAM {len(card)} bytes, "
+                  f"identical={card == buf.getvalue()}", flush=True)
+            if card != buf.getvalue():
+                raise AssertionError(f"cli {name}: the card's SAM differs from the CPU port's at "
+                                     f"line {first_diff(card, buf.getvalue())}")
+
+        # ---- the SDUST and NGMLR passes on the card, against the plain
+        # minimizer pass, on BATCH reads without planted spans, counted
+        rates = {}
+        for name, flags in (("minimizers", ["--Seeding_Technique", "minimizers"]),
+                            ("sdust", sdust), ("ngmlr", ngmlr)):
+            al = Aligner(pack_i, flag_params(flags), device=dev, index_prefix=idx)
+            al.align_to_sam(iter(reads[:CLI_BATCH]), io.StringIO(), batch_size=BATCH)
+            reset_launches()
+            walls = []
+            for _ in range(PASSES):
+                t0 = time.perf_counter()
+                n = al.align_to_sam(iter(reads), io.StringIO(), batch_size=BATCH)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                if n != len(reads):
+                    raise AssertionError(f"cli {name}: {n} of {len(reads)} reads")
+            launches = read_launches(kernels.KERNELS)
+            for k, v in launches.items():
+                total[k] += v
+            rates[name] = len(reads) / statistics.median(walls)
+            per_pass = {k: launches[k] / PASSES for k in ("soc_sweep", "linesweep", "dp_fused")}
+            print(f"cli pass {name}: walls {['%.3f' % w for w in walls]} s, {rates[name]:.1f} "
+                  f"reads/s (median), launches per pass {json.dumps(per_pass)}", flush=True)
+            if min(per_pass.values()) == 0:
+                raise AssertionError(f"cli pass {name} did not run kernels A, B, C: {per_pass}")
+        print(f"cli rates: SDUST {rates['sdust'] / rates['minimizers']:.3f} and NGMLR "
+              f"{rates['ngmlr'] / rates['minimizers']:.3f} of the minimizer pass", flush=True)
+    return total
+
+
+def build_fmd(pack):
+    from ma_tpu_torch.index.fmd_index import FMDIndex
+
+    t0 = time.perf_counter()
+    fmd = FMDIndex.build(pack)
+    print(f"fmd: index of {fmd.n} text positions built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return fmd
+
+
 def profile_pass(aligner, reads, wall_s: float) -> None:
     """One more pass under torch.profiler: the ops by device time, and the
     device's busy time against `wall_s`, the median unprofiled pass."""
@@ -1254,12 +1586,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also run one pass under torch.profiler")
-    ap.add_argument("--only", choices=("soc", "dp", "traceback"),
+    ap.add_argument("--only", choices=("soc", "dp", "traceback", "paired", "cli"),
                     help="only one kernel's timed cases, printed as JSON: kernel A's two "
                          "(soc), kernels C and C' on the inputs of a full run (dp), the "
                          "traceback kernel on kernel D's two cases and the long pass's own "
-                         "launches (traceback); run a copy of this script from another "
-                         "tree's root to compare two trees")
+                         "launches (traceback); or only the paired phase (paired) or the "
+                         "command-line phase (cli), with each kernel's launches as JSON; run "
+                         "a copy of this script from another tree's root to compare two trees")
     args = ap.parse_args()
 
     import torch
@@ -1327,6 +1660,15 @@ def main() -> int:
                                                         batch_size=LONG_BATCH))
         cases += [traceback_case("long pass", *a, roof, plain_reps=0) for a in tb_seen]
         print(json.dumps(cases))
+        return 0
+
+    if args.only in ("paired", "cli"):
+        pack, _, _ = simulate(GENOME_BP, 1, READ_LEN)  # the bench genome
+        if args.only == "paired":
+            launches = paired_phase(dev, pack, build_fmd(pack))
+        else:
+            launches = cli_phase(dev, pack)
+        print(json.dumps(launches))
         return 0
 
     t0 = time.perf_counter()
@@ -1402,7 +1744,17 @@ def main() -> int:
                              f"{first_diff(gpu_sam.getvalue(), cpu_sam.getvalue())}")
 
     # ---- FMD seeding (Default and Illumina presets), counted
-    for name, v in fmd_phase(dev, pack, reads, starts).items():
+    fmd = build_fmd(pack)
+    for name, v in fmd_phase(dev, pack, fmd, reads, starts).items():
+        total[name] += v
+
+    # ---- paired reads (Illumina Paired and Default + -m), counted
+    for name, v in paired_phase(dev, pack, fmd).items():
+        total[name] += v
+    del fmd
+
+    # ---- the command line in subprocesses; SDUST and NGMLR passes, counted
+    for name, v in cli_phase(dev, pack).items():
         total[name] += v
 
     # ---- long reads with small inversions: the Python NW path, counted

@@ -10,9 +10,12 @@ which a wrapper runs only for tensors on the CPU.
 Nothing here imports jax. Every entry point that allocates takes an explicit
 `device`; there is no default device.
 
-Ported slice: single-end short and long reads, `Seeding Technique =
-minimizers`, small inversions, `Aligner.align_to_sam` (see README.md,
-"PyTorch/CUDA port").
+Ported: single-end short and long reads with every seeding technique
+(minimizers, with SDUST masking; the FMD techniques maxSpan, SMEMs and
+MEMs), small inversions, NGMLR tags, paired reads
+(`pipeline/paired.py`), `Aligner.align_to_sam`, and the command line
+`python -m ma_tpu_torch.cli` (index, align, paired, `--Serve`; on cuda
+unless given `--Device cpu`). See README.md, "PyTorch/CUDA port".
 """
 
 __version__ = "0.1.0"

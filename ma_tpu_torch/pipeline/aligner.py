@@ -12,8 +12,8 @@ their plain versions on the CPU). A batch whose DP problems all fit the
 fused buckets takes the native C++ planner and assembler of
 pipeline/finish_native.py (the port's copy of ma_tpu's); any other batch (long
 reads) takes the Python planner and assembler of pipeline/nw.py, exactly
-where ma_tpu does. Options the port does not cover yet raise
-NotImplementedError naming the option.
+where ma_tpu does. Paired reads go through pipeline/paired.py over
+`Aligner.align_batch`.
 """
 from __future__ import annotations
 
@@ -38,6 +38,7 @@ from ma_tpu_torch.ops.extract import INT_MAX, SeedBatch, compute_delta, extract_
 from ma_tpu_torch.ops.filters import min_length, seed_lump
 from ma_tpu_torch.ops.harmonize import HarmBatch, harmonization
 from ma_tpu_torch.ops.occ import FMDDev
+from ma_tpu_torch.ops.sdust import dust_mask_array
 from ma_tpu_torch.ops.seeding import max_spanning_seeding, smem_seeding
 from ma_tpu_torch.ops.soc import SoCBatch, soc_collect
 from ma_tpu_torch.pipeline.inversions import small_inversions
@@ -130,6 +131,17 @@ class DeviceStageConfig:
                 8 if L <= 256 else (16 if (L <= 1024 or L >= 8192) else max_socs),
             ),
         )
+
+
+def dust_masked(seqs: np.ndarray, lens: np.ndarray, thres: int) -> np.ndarray:
+    """A copy of a [B, L] code batch with each read's SDUST low-complexity
+    spans (threshold `thres`) set to 4 (N)."""
+    out = seqs.copy()
+    for b in range(len(seqs)):
+        n = int(lens[b])
+        if n:
+            out[b, :n][dust_mask_array(seqs[b, :n], T=thres)] = 4
+    return out
 
 
 def _harm_pack_core(harm: HarmBatch, overflow: torch.Tensor, max_sets: int = 0):
@@ -282,12 +294,14 @@ def mem_seed_batch(fmd: FMDIndex, seqs: np.ndarray, lens: np.ndarray,
 class Aligner:
     """Single-end aligner over a Pack, on an explicit device. `fmd` is the
     host FMD index of the pack for the FMD techniques (maxSpan, SMEMs,
-    MEMs); it is built on first use when not given."""
+    MEMs); it is built on first use when not given. `index_prefix` names
+    the stored index (`<prefix>.mmi.npz`): its minimizer index is used when
+    its k and w match the parameters, else one is built."""
 
     MAX_P_FUSED = 4096  # DP problems per fused-kernel launch
 
     def __init__(self, pack: Pack, params: ParameterSetManager | ParameterSet | None = None,
-                 *, device, fmd: FMDIndex | None = None):
+                 *, device, fmd: FMDIndex | None = None, index_prefix: str | None = None):
         if params is None:
             params = ParameterSetManager()
         self.pset: ParameterSet = (
@@ -300,6 +314,7 @@ class Aligner:
         )
         self.nw_cfg = NWConfig(self.pset)
         self._mmi_dev = None
+        self._index_prefix = index_prefix
         self.fmd_host = fmd
         self._fmd_dev = None
         self.profiler: AnalyzeRuntimes | None = None
@@ -321,23 +336,21 @@ class Aligner:
     TECHNIQUES = ("minimizers", "maxSpan", "SMEMs", "MEMs")
 
     def _check_supported(self) -> None:
-        """The ported slice: single-end reads, every seeding technique, no
-        SDUST masking of minimizers, no NGMLR tags."""
-        g = self.pset.get
-        technique = str(g("Seeding Technique"))
+        technique = str(self.pset.get("Seeding Technique"))
         if technique not in self.TECHNIQUES:
             raise NotImplementedError(f"Seeding Technique = {technique}")
-        if technique == "minimizers" and int(g("Minimizers - SDUST Threshold")) > 0:
-            raise NotImplementedError("Minimizers - SDUST Threshold")
-        if bool(g("Emulate NGMLR's tag output")):
-            raise NotImplementedError("Emulate NGMLR's tag output")
-        if bool(g("Use Paired Reads")):
-            raise NotImplementedError("Use Paired Reads")
 
     def mmi_dev(self, cfg: DeviceStageConfig):
-        """The device minimizer index, built on first use."""
+        """The device minimizer index: the stored one under index_prefix
+        when its k and w match, else one built on first use."""
         if self._mmi_dev is None:
-            mmi = MinimizerIndex.build(self.pack, k=cfg.mm_k, w=cfg.mm_w)
+            mmi = None
+            if self._index_prefix and MinimizerIndex.exists(self._index_prefix):
+                stored = MinimizerIndex.load(self._index_prefix)
+                if stored.k == cfg.mm_k and stored.w == cfg.mm_w:
+                    mmi = stored
+            if mmi is None:
+                mmi = MinimizerIndex.build(self.pack, k=cfg.mm_k, w=cfg.mm_w)
             self._mmi_dev = mmi.to_device(self.device)
         return self._mmi_dev
 
@@ -363,8 +376,14 @@ class Aligner:
         lens_d = torch.as_tensor(np.asarray(lens, np.int32), device=self.device)
         ref_len = self.pack.unpacked_size_forward_strand
         if cfg.seeding_technique == "minimizers":
+            seed_d = seqs_d
+            thres = int(self.pset.get("Minimizers - SDUST Threshold"))
+            if thres > 0:
+                # SDUST: low-complexity spans become N for seeding only; the
+                # DP reads the real bases (seqs_d)
+                seed_d = torch.as_tensor(dust_masked(seqs, lens, thres), device=self.device)
             out = device_stage_mm(cfg, self.mmi_dev(cfg), self.contig_starts, ref_len,
-                                  seqs_d, lens_d)
+                                  seed_d, lens_d)
         elif cfg.seeding_technique == "MEMs":
             seeds = mem_seed_batch(self.fmd(), seqs, lens, cfg, self.device)
             out = device_stage_from_seeds(cfg, self.contig_starts, ref_len, seeds, lens_d)
@@ -653,22 +672,24 @@ class Aligner:
 
     # --------------------------------------------------------------- frontend
     def align_to_sam(self, reads: Iterable[NucSeq], out: IO[str], batch_size: int = 256,
-                     cmd: str = "ma_tpu_torch") -> int:
+                     cmd: str = "ma_tpu_torch", progress=None) -> int:
         """Stream reads -> SAM records; returns the number of reads.
 
         Reads are grouped into batches by padded length (a bucket flushes at
-        batch_size reads, fewer for long reads) and written in flush order."""
+        batch_size reads, fewer for long reads) and written in flush order.
+        `progress(n_done)` is called after each batch; False cancels."""
         self._check_supported()
         g = self.pset.get
+        ngmlr = bool(g("Emulate NGMLR's tag output"))
         writer = SamWriter(
             out, self.pack, cmd=cmd, soft_clip=bool(g("Soft clip")),
-            use_m_cigar=bool(g("Use M in CIGAR")), ngmlr_tags=False,
+            use_m_cigar=bool(g("Use M in CIGAR")), ngmlr_tags=ngmlr,
             cg_tag=bool(g("Output long cigars in CG tag")),
         )
         omit_sec = bool(g("Omit Secondary Alignments"))
         omit_sup = bool(g("Omit Supplementary Alignments"))
-        # small inversions need Alignment objects
-        sam_native = not bool(g("Detect Small Inversions"))
+        # NGMLR tags and small inversions need Alignment objects
+        sam_native = not (ngmlr or bool(g("Detect Small Inversions")))
         n = 0
 
         def run(bucket: List[NucSeq]):
@@ -700,6 +721,8 @@ class Aligner:
                             alns = [a for a in alns if not a.supplementary]
                         writer.write(alns, read)
                         n += 1
+            if progress is not None and progress(n) is False:
+                raise KeyboardInterrupt("alignment cancelled by progress callback")
 
         buckets: dict = {}
         for read in reads:

@@ -614,3 +614,42 @@ def test_fused_problems_past_c_prime(cuda, monkeypatch, is_global):
     want = banded_align_runs_plain(q, t, qlen, tlen, band, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert is_global or int(want[1][2].max()) >= 0
+
+
+def _front_end_sam(case: str, device) -> tuple:
+    """One batch of the paired (Illumina Paired, 64 pairs) or the SDUST
+    (minimizers, threshold 20, 64 reads) front end on `device`: the SAM and
+    the launches of kernels A, B, C in that run."""
+    import io
+
+    from ma_tpu_torch import kernels
+    from ma_tpu_torch.pipeline.aligner import Aligner
+    from ma_tpu_torch.pipeline.paired import PairedAligner
+    from test_torch_paired import paired_data, paired_objects, params
+    from test_torch_sdust import THRES, _fixture
+
+    ks = (kernels.SOC_SWEEP, kernels.LINESWEEP, kernels.DP_FUSED)
+    before = [k.launches for k in ks]
+    out = io.StringIO()
+    if case == "paired":
+        pack, pairs = paired_objects("ma_tpu_torch", paired_data())
+        al = Aligner(pack, params("illumina_paired"), device=device)
+        assert PairedAligner(al).align_to_sam(iter(pairs), out, batch_size=64) == 128
+    else:
+        pack, reads = _fixture()
+        al = Aligner(pack, device=device)
+        al.pset.set("Seeding Technique", "minimizers")
+        al.pset.set("Minimizers - SDUST Threshold", THRES)
+        assert al.align_to_sam(iter(reads), out, batch_size=64) == 64
+    return out.getvalue(), [k.launches - b for k, b in zip(ks, before)]
+
+
+@pytest.mark.parametrize("case", ["paired", "sdust"])
+def test_front_end_batch_on_card(cuda, case):
+    """A paired batch and an SDUST batch on the card: the SAM equals the CPU
+    port's and kernels A, B and C launched."""
+    sam, launches = _front_end_sam(case, cuda)
+    assert min(launches) > 0, launches
+    cpu_sam, cpu_launches = _front_end_sam(case, torch.device("cpu"))
+    assert cpu_launches == [0, 0, 0]
+    assert sam == cpu_sam

@@ -81,3 +81,41 @@ def test_port_loads_no_jax_and_no_ma_tpu():
                          env=env, cwd=ROOT, timeout=120)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "LOADED []" in res.stdout, res.stdout[-3000:]
+
+
+CLI_SCRIPT = textwrap.dedent("""
+    import runpy, sys
+    import numpy as np
+
+    d = sys.argv[1]
+    rng = np.random.default_rng(5)
+    seq = "".join("ACGT"[c] for c in rng.integers(0, 4, 20_000))
+    open(d + "/g.fa", "w").write(">g\\n" + seq + "\\n")
+    with open(d + "/r1.fq", "w") as f1, open(d + "/r2.fq", "w") as f2:
+        for i, p in enumerate(rng.integers(0, 19_000, 4)):
+            p = int(p)
+            f1.write(f"@r{i}\\n{seq[p : p + 150]}\\n+\\n{'I' * 150}\\n")
+            f2.write(f"@r{i}\\n{seq[p + 250 : p + 400]}\\n+\\n{'I' * 150}\\n")
+    for argv in (["--Create_Index", d + "/g.fa," + d + ",idx"],
+                 ["-x", d + "/idx", "-i", d + "/r1.fq", "-m", d + "/r2.fq", "-o", d + "/o.sam",
+                  "--Device", "cpu"]):
+        sys.argv = ["ma_tpu_torch"] + argv
+        try:
+            runpy.run_module("ma_tpu_torch", run_name="__main__", alter_sys=True)
+        except SystemExit as ex:
+            assert ex.code == 0, ex.code
+    assert open(d + "/o.sam").read().count("\\n") == 3 + 8
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("ma_tpu", "jax"))
+    print("LOADED", loaded)
+""")
+
+
+def test_cli_loads_no_jax_and_no_ma_tpu(tmp_path):
+    """`python -m ma_tpu_torch` (--Create_Index, then a paired run with
+    --Device cpu) in a fresh interpreter loads no jax and no ma_tpu module."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["OMP_NUM_THREADS"] = "1"
+    res = subprocess.run([sys.executable, "-c", CLI_SCRIPT, str(tmp_path)], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "LOADED []" in res.stdout, res.stdout[-3000:]
