@@ -96,7 +96,29 @@ Phases (any failure raises and exits non-zero before the last line):
      fused bucket runs 1,152 columns wide, then 4,000 and 4,400, so it runs
      4,352 wide: with MA_TPU_DP_V2 unset, C' must launch past 1,024 (then
      4,096) columns (its per (M, N, mode) tally), and the SAM must equal the
-     CPU port's.
+     CPU port's;
+ 12. the SV caller (msv): scripts/sv_bench.py 50 50000 1000's workload,
+     drawn as that script draws it (seed 20260821, a 50 Mbp reference, 100
+     deletions, insertions and inversions of 100-2,000 bp, 50,000 reads of
+     1 kb at 0.2% substitutions, every second one reverse complemented):
+     the minimizer index build (host) and its CHD + upload timed apart, a
+     warm-up on 512 reads, then compute_sv_jumps_batch(device="cuda") and
+     sweep_sv_jumps: jumps, calls, sv_recall (implanted sites with a call
+     within 1,000 bp), reads/s and jumps/s, the sweep's jumps/s, the
+     MA_TPU_SV_PROFILE phase split and kernel A's launches per pass (one a
+     chunk of 512; the median of 3 passes when the first takes under 45 s,
+     else that one pass, as printed); jumps, calls, recall and A's launches
+     must not be 0; the first 2,048 reads on device="cpu" must give the
+     same JumpBatch column for column and the same calls; kernel A on the
+     first chunk's table (B = 512, S = 2,048, K = 64, non-rectangular;
+     record "soc_sweep_msv"); connector_pattern_filter on the pass's calls
+     on the card: kernel D must launch, its scores equal its plain
+     version's, the kept calls the CPU port's, and D is timed at that shape
+     (record "dp_wavefront_connector"); then a 2 Mbp slice of the reference
+     as FASTA, `--Create_Index` and `--Sv` in subprocesses (no jax or
+     ma_tpu import) on 2,000 reads crossing the slice's SVs: calls.tsv,
+     .html and .view.html must equal the in-process CPU port's byte for
+     byte. `--only msv` runs this phase alone.
 
 The bound of a kernel (`bound_ms`) is the larger of the bytes it must move
 (each input read once, each output written once) over the card's memory rate
@@ -109,9 +131,11 @@ single PyTorch call computes any of these kernels' functions,
 so `library_ms` is null.
 
 The line before the last is the kernels' JSON record (each kernel's
-launches summed over the counted main-path passes of phases 5-9, each read
-with the counts set to 0 just before it; "soc_sweep_long", A's second timed
-case, with the long passes' launches of A); the last line is
+launches summed over the counted main-path passes of phases 5-9 and 12, each
+read with the counts set to 0 just before it; "soc_sweep_long" and
+"soc_sweep_msv", A's other timed cases, with the long and the MSV passes'
+launches of A; "dp_wavefront_connector", D at the connector's shape, with
+its launches in the connector's run); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Neither JAX nor any module of the JAX package ma_tpu is imported (checked at
 the end).
@@ -119,6 +143,7 @@ the end).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import io
 import json
 import os
@@ -146,6 +171,13 @@ CLI_BATCH = 256  # the command line's batch (ma_tpu's default: it sets the SAM's
 CLI_READS = 512  # reads (and pairs) of each command-line run
 SDUST_T = 20
 LONG_CHECK_READS = 4
+# scripts/sv_bench.py 50 50000 1000: its seed, a 50 Mbp reference with
+# max(20, G // 500,000) = 100 SVs, 50,000 reads of 1 kb; the MSV chunk
+SV_SEED, SV_GENOME_BP, SV_READS, SV_READ_LEN, SV_BATCH = 20260821, 50_000_000, 50_000, 1000, 512
+SV_RECALL_TOL = 1000  # bp between a call and an implanted site (sv_bench.py's count)
+SV_CHECK_READS = 2048  # reads cross-checked against the CPU port
+SV_THREE_PASSES_BELOW_S = 45  # a first pass this fast keeps the phase near 3 min with 3
+SV_CLI_BP, SV_CLI_READS = 2_000_000, 2000  # the --Sv command line's slice and reads
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 INT32_LANES_PER_SM = 64
 # int32 operations that one in-band cell of ma_tpu_torch/ops/dp_rows.py's
@@ -1552,6 +1584,301 @@ def cli_phase(dev, pack) -> dict:
     return total
 
 
+def simulate_sv():
+    """scripts/sv_bench.py's workload, drawn as that script draws it: a
+    random reference, max(20, G // 500,000) deletions, insertions and
+    inversions of 100-2,000 bp at sorted sites in its middle 80%, and
+    reads of the donor at 0.2% substitutions, every second one reverse
+    complemented. Returns (ref codes, svs as (kind, ref pos, size, donor
+    pos), reads)."""
+    from ma_tpu_torch.containers.nucseq import NucSeq
+
+    rng = np.random.default_rng(SV_SEED)
+    G, n_reads, read_len = SV_GENOME_BP, SV_READS, SV_READ_LEN
+    ref = rng.integers(0, 4, size=G).astype(np.uint8)
+    n_sv = max(20, G // 500_000)
+    sites = np.sort(rng.choice(np.arange(G // 10, G - G // 10), n_sv, replace=False))
+    parts, svs, cur, dpos = [], [], 0, 0
+    for p in sites:
+        p = int(p)
+        kind = rng.choice(["del", "ins", "inv"])
+        size = int(rng.integers(100, 2000))
+        parts.append(ref[cur:p])
+        dpos += p - cur
+        svs.append((str(kind), p, size, dpos))
+        if kind == "del":
+            cur = p + size
+        elif kind == "ins":
+            parts.append(rng.integers(0, 4, size=size).astype(np.uint8))
+            dpos += size
+            cur = p
+        else:
+            parts.append((3 - ref[p : p + size])[::-1])
+            dpos += size
+            cur = p + size
+    parts.append(ref[cur:])
+    donor = np.concatenate(parts)
+    reads = []
+    for i in range(n_reads):
+        p = int(rng.integers(0, len(donor) - read_len))
+        codes = donor[p : p + read_len].copy()
+        err = rng.random(read_len) < 0.002
+        codes[err] = (codes[err] + rng.integers(1, 4, err.sum())) % 4
+        if i % 2:
+            codes = (3 - codes)[::-1]
+        reads.append(NucSeq(codes.astype(np.uint8), name=f"r{i}"))
+    return ref, svs, donor, reads
+
+
+def sv_recall(calls, svs) -> int:
+    """Implanted SVs with a call within SV_RECALL_TOL bp (sv_bench.py's count)."""
+    pts = (np.asarray([(c.from_pos, c.to_pos) for c in calls], np.int64) if calls
+           else np.zeros((0, 2), np.int64))
+    return sum(1 for (_, p, _, _) in svs if len(pts) and (np.abs(pts - p) < SV_RECALL_TOL).any())
+
+
+def sv_pass(reads, pack, mmi, dev):
+    """One compute_sv_jumps_batch pass on `dev` under MA_TPU_SV_PROFILE,
+    ending in a synchronize: (JumpBatch, wall s, its phase line)."""
+    import torch
+
+    from ma_tpu_torch.msv.pipeline import compute_sv_jumps_batch
+
+    err = io.StringIO()
+    os.environ["MA_TPU_SV_PROFILE"] = "1"
+    try:
+        with contextlib.redirect_stderr(err):
+            t0 = time.perf_counter()
+            jb = compute_sv_jumps_batch(reads, pack, mmi, batch=SV_BATCH, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        del os.environ["MA_TPU_SV_PROFILE"]
+    phases = [ln for ln in err.getvalue().splitlines() if ln.startswith("# sv phases:")]
+    return jb, wall, phases[-1][len("# sv phases: "):]
+
+
+def jump_columns_equal(a, b) -> bool:
+    cols = ("from_pos", "to_pos", "query_from", "query_to", "from_forward", "to_forward",
+            "num_supporting_nt", "read_id", "was_mirrored", "id")
+    return len(a) == len(b) and all(np.array_equal(getattr(a, c), getattr(b, c)) for c in cols)
+
+
+def call_rows(calls):
+    return [(c.from_pos, c.to_pos, c.from_size, c.to_size, c.from_forward, c.to_forward,
+             c.supp_reads, c.supp_nt, tuple(c.supporting_jump_ids)) for c in calls]
+
+
+def msv_soc_inputs(reads, pack, mmi, dev):
+    """Kernel A's operands as the MSV seed stage gives them on its first
+    chunk (B = 512, S = 2,048 seed slots, K = 64, non-rectangular)."""
+    import torch
+
+    from ma_tpu_torch.index.minimizer import minimizer_seeding
+    from ma_tpu_torch.msv.pipeline import MAX_SEEDS, MAX_SOCS
+    from ma_tpu_torch.ops.filters import min_length, seed_lump
+    from ma_tpu_torch.ops.soc import soc_candidates
+
+    chunk = reads[:SV_BATCH]
+    seqs = np.full((len(chunk), 1024), 4, np.uint8)
+    for i, r in enumerate(chunk):
+        seqs[i, : len(r)] = r.codes
+    seqs = torch.as_tensor(seqs, device=dev)
+    lens = torch.as_tensor([len(r) for r in chunk], dtype=torch.int32, device=dev)
+    cst = torch.as_tensor(np.asarray(pack.starts, np.int32), device=dev)
+    seeds = minimizer_seeding(mmi.to_device(dev), seqs, lens, cst,
+                              pack.unpacked_size_forward_strand, k=mmi.k, w=mmi.w,
+                              max_occ=10000, max_seeds=MAX_SEEDS, rectangular=False)
+    seeds = min_length(seed_lump(seeds), 18)
+    sd, cand, min_score = soc_candidates(seeds, lens, cst, rectangular=False)
+    return cand, sd.n_seeds.contiguous(), min_score, MAX_SOCS
+
+
+def connector_case(calls, jumps, reads, pack, dev, records, roof) -> int:
+    """connector_pattern_filter on the card over `calls`: kernel D's scores
+    against its plain version on the same inputs, D's time at that shape
+    against its bound (every cell of the direction tensor at
+    DP_OPS_PER_CELL ops), the kept calls against the CPU port's. Returns
+    D's launches in the filter's run."""
+    import ma_tpu_torch.msv.connector as conn
+    from ma_tpu_torch import kernels
+    from ma_tpu_torch.ops.dp_wavefront import banded_align_wavefront_plain
+
+    seen, orig = [], conn.banded_align
+
+    def spy(*a, **kw):
+        res = orig(*a, **kw)
+        seen.append((a, kw, res))
+        return res
+
+    conn.banded_align = spy
+    try:
+        before = kernels.DP_WAVEFRONT.launches
+        t0 = time.perf_counter()
+        kept = conn.connector_pattern_filter(calls, jumps, reads, pack, device=dev)
+        wall = time.perf_counter() - t0
+        launches = kernels.DP_WAVEFRONT.launches - before
+        cpu = conn.connector_pattern_filter(calls, jumps, reads, pack, device="cpu")
+    finally:
+        conn.banded_align = orig
+    (args, kw, res), = seen[:1]
+    q, t, ql, tl, bd, params = args
+    plain = banded_align_wavefront_plain(q, t, ql, tl, bd, params, kw["zdrop"], kw["is_global"])
+    err = max_abs_err([res.score, res.max_i, res.max_j, res.zdropped],
+                      [plain.score, plain.max_i, plain.max_j, plain.zdropped])
+    run = lambda: orig(q, t, ql, tl, bd, params, **kw)  # noqa: E731
+    ms = time_ms(run, 10)
+    replay = graph_ms(run, calls=5)
+    pms = time_ms(lambda: banded_align_wavefront_plain(q, t, ql, tl, bd, params, kw["zdrop"],
+                                                       kw["is_global"]), 1)
+    P, M = q.shape
+    N = t.shape[1]
+    cells = P * (M + N - 1) * M
+    bnd = roof.bound(nbytes(q, t, ql, tl, bd) + nbytes(*res), cells * DP_OPS_PER_CELL)
+    print(f"msv connector: {len(calls)} calls -> {len(kept)} kept in {wall:.2f} s (card), the "
+          f"CPU port's equal: {call_rows(kept) == call_rows(cpu)}; dp_wavefront launches "
+          f"{launches}, P={P} M={M} N={N} local z-drop {kw['zdrop']} band 100, scores "
+          f"max_abs_err={err} against the plain version; kernel {ms:.4f} ms by events, "
+          f"{replay:.4f} ms by graph replay, plain {pms:.3f} ms; bound {bnd['bound_ms']:.5f} ms "
+          f"({bnd['bound_by']}, {cells} cells x {DP_OPS_PER_CELL} ops), "
+          f"{bnd['bound_ms'] / replay:.1%} of the replay time", flush=True)
+    if err or call_rows(kept) != call_rows(cpu):
+        raise AssertionError("msv connector: the card's D scores or kept calls differ")
+    if not launches:
+        raise AssertionError("msv connector: kernel D never launched")
+    records["dp_wavefront_connector"] = dict(max_abs_err=err, ms=replay, eager_ms=ms,
+                                             plain_ms=pms, **bnd)
+    return launches
+
+
+def sv_cli_files(ref, svs, donor, d: str):
+    """A SV_CLI_BP slice of the SV reference, from 100 kb before the first
+    SV past its middle, as FASTA (d/sv.fa), and SV_CLI_READS reads of the
+    donor, each crossing the left breakpoint of an SV inside the slice
+    (d/sv.fq). Returns the number of SVs inside."""
+    from ma_tpu_torch.containers.nucseq import decode_seq
+
+    at = next(p for _, p, _, _ in svs if p >= len(ref) // 2) - 100_000
+    inside = [sv for sv in svs if at + 5_000 <= sv[1] <= at + SV_CLI_BP - 5_000]
+    seq = decode_seq(ref[at : at + SV_CLI_BP])
+    with open(os.path.join(d, "sv.fa"), "w") as f:
+        f.write(">chrS\n" + "\n".join(seq[i : i + 80] for i in range(0, len(seq), 80)) + "\n")
+    rng = np.random.default_rng(SV_SEED + 1)
+    with open(os.path.join(d, "sv.fq"), "w") as f:
+        for i in range(SV_CLI_READS):
+            _, _, _, dp = inside[i % len(inside)]
+            p = dp - int(rng.integers(100, SV_READ_LEN - 100))
+            codes = donor[p : p + SV_READ_LEN].copy()
+            if i % 2:
+                codes = (3 - codes)[::-1]
+            f.write(f"@c{i}\n{decode_seq(codes)}\n+\n{'I' * SV_READ_LEN}\n")
+    return len(inside)
+
+
+def msv_phase(dev, records, roof) -> dict:
+    """The MSV caller at scripts/sv_bench.py's size on the card; returns
+    each kernel's launches in the counted passes (A) and in the connector's
+    run (D)."""
+    import torch
+
+    from ma_tpu_torch import kernels
+    from ma_tpu_torch.cli import main as cli_main
+    from ma_tpu_torch.containers.pack import Pack
+    from ma_tpu_torch.index.minimizer import MinimizerIndex
+    from ma_tpu_torch.msv.pipeline import compute_sv_jumps_batch, sweep_sv_jumps
+
+    t0 = time.perf_counter()
+    ref, svs, donor, reads = simulate_sv()
+    print(f"msv workload: reference {SV_GENOME_BP} bp, {len(svs)} SVs implanted "
+          f"({', '.join(f'{k} {sum(s[0] == k for s in svs)}' for k in ('del', 'ins', 'inv'))}), "
+          f"{len(reads)} reads x {SV_READ_LEN} bp ({time.perf_counter() - t0:.1f} s)", flush=True)
+    pack = Pack.empty()
+    pack.append("chrS", ref)
+    t0 = time.perf_counter()
+    mmi = MinimizerIndex.build(pack)
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mmi.to_device(dev)
+    torch.cuda.synchronize()
+    t_up = time.perf_counter() - t0
+    print(f"msv index: {len(mmi.hash_sorted)} minimizers, build {t_build:.2f} s (host), CHD + "
+          f"upload {t_up:.2f} s", flush=True)
+
+    t0 = time.perf_counter()
+    compute_sv_jumps_batch(reads[:SV_BATCH], pack, mmi, device=dev)
+    torch.cuda.synchronize()
+    print(f"msv warm-up: {SV_BATCH} reads in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    reset_launches()
+    runs = [sv_pass(reads, pack, mmi, dev)]
+    if runs[0][1] < SV_THREE_PASSES_BELOW_S:
+        runs += [sv_pass(reads, pack, mmi, dev) for _ in range(PASSES - 1)]
+    launches = read_launches(kernels.KERNELS)
+    jb = runs[-1][0]
+    walls = [w for _, w, _ in runs]
+    wall = statistics.median(walls)
+    t0 = time.perf_counter()
+    calls = sweep_sv_jumps(jb)
+    t_sweep = time.perf_counter() - t0
+    hit = sv_recall(calls, svs)
+    a_per_pass = launches["soc_sweep"] / len(runs)
+    how = (f"median of {len(runs)} passes" if len(runs) > 1 else
+           f"1 timed pass (the first took {walls[0]:.1f} s, past {SV_THREE_PASSES_BELOW_S} s)")
+    print(f"msv: walls {['%.2f' % w for w in walls]} s ({how}); jumps={len(jb)} "
+          f"calls={len(calls)} sv_recall {hit}/{len(svs)}; {len(reads) / wall:.1f} reads/s and "
+          f"{len(jb) / wall:.1f} jumps/s (jumps), {len(reads) / (wall + t_sweep):.1f} reads/s "
+          f"and {len(jb) / (wall + t_sweep):.1f} jumps/s end to end with the sweep "
+          f"({t_sweep:.2f} s, {len(jb) / max(t_sweep, 1e-9):.1f} jumps/s)", flush=True)
+    for i, (_, w, ph) in enumerate(runs):
+        print(f"msv pass {i}: {w:.2f} s, phases: {ph}", flush=True)
+    print(f"msv launches per pass: soc_sweep {a_per_pass:g} (chunks of {SV_BATCH}: "
+          f"{-(-len(reads) // SV_BATCH)}); {json.dumps(launches)}", flush=True)
+    if not (len(jb) and calls and hit and a_per_pass):
+        raise AssertionError(f"msv: jumps {len(jb)}, calls {len(calls)}, recall {hit}, "
+                             f"kernel A launches {a_per_pass}")
+
+    # ---- the first SV_CHECK_READS reads on the card against the CPU port
+    sub = reads[:SV_CHECK_READS]
+    t0 = time.perf_counter()
+    cpu_jb = compute_sv_jumps_batch(sub, pack, mmi, device="cpu")
+    cpu_wall = time.perf_counter() - t0
+    gpu_jb = compute_sv_jumps_batch(sub, pack, mmi, device=dev)
+    same_j = jump_columns_equal(gpu_jb, cpu_jb)
+    same_c = call_rows(sweep_sv_jumps(gpu_jb, min_reads=1)) == call_rows(
+        sweep_sv_jumps(cpu_jb, min_reads=1))
+    print(f"msv cross-check: {len(sub)} reads, {len(cpu_jb)} jumps, CPU port {cpu_wall:.1f} s; "
+          f"JumpBatch identical={same_j}, calls identical={same_c}", flush=True)
+    if not (same_j and same_c and len(cpu_jb)):
+        raise AssertionError("msv: the card's jumps or calls differ from the CPU port's")
+
+    # ---- kernel A at the MSV shape; the connector's DP (kernel D) on the card
+    soc_case("soc_sweep_msv", *msv_soc_inputs(reads, pack, mmi, dev), records, roof,
+             plain_reps=1)
+    d_launches = connector_case(calls, jb.to_jumps(), reads, pack, dev, records, roof)
+
+    # ---- --Sv from the command line, in a subprocess, against the CPU port
+    with tempfile.TemporaryDirectory() as d:
+        n_in = sv_cli_files(ref, svs, donor, d)
+        wall, _ = run_cli(["--Create_Index", f"{d}/sv.fa,{d},sv"])
+        print(f"msv cli --Create_Index: {wall:.1f} s for {SV_CLI_BP} bp", flush=True)
+        flags = ["-x", f"{d}/sv", "-i", f"{d}/sv.fq", "--Sv"]
+        wall, err = run_cli(flags + ["-o", f"{d}/card.tsv", "--Device", "cuda"])
+        done = re.search(r"done\. .*", err)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(io.StringIO()):
+            rc = cli_main(flags + ["-o", f"{d}/cpu.tsv", "--Device", "cpu"])
+        cpu_wall = time.perf_counter() - t0
+        same = [open(f"{d}/card.tsv{s}", "rb").read() == open(f"{d}/cpu.tsv{s}", "rb").read()
+                for s in ("", ".html", ".view.html")]
+        n_calls = len(open(f"{d}/card.tsv").read().splitlines()) - 1
+        print(f"msv cli --Sv: {SV_CLI_READS} reads over {n_in} SVs, subprocess {wall:.1f} s "
+              f"({done.group(0) if done else err[-200:]}), CPU port in process {cpu_wall:.1f} s "
+              f"(rc {rc}); {n_calls} calls; tsv/html/view.html identical {same}", flush=True)
+        if rc or not all(same) or n_calls < 1:
+            raise AssertionError("msv cli: the card's --Sv files differ from the CPU port's")
+    return {"soc_sweep": launches["soc_sweep"], "dp_wavefront": d_launches}
+
+
 def build_fmd(pack):
     from ma_tpu_torch.index.fmd_index import FMDIndex
 
@@ -1586,12 +1913,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also run one pass under torch.profiler")
-    ap.add_argument("--only", choices=("soc", "dp", "traceback", "paired", "cli"),
+    ap.add_argument("--only", choices=("soc", "dp", "traceback", "paired", "cli", "msv"),
                     help="only one kernel's timed cases, printed as JSON: kernel A's two "
                          "(soc), kernels C and C' on the inputs of a full run (dp), the "
                          "traceback kernel on kernel D's two cases and the long pass's own "
-                         "launches (traceback); or only the paired phase (paired) or the "
-                         "command-line phase (cli), with each kernel's launches as JSON; run "
+                         "launches (traceback); or only the paired phase (paired), the "
+                         "command-line phase (cli) or the SV caller's phase (msv), with each "
+                         "kernel's launches as JSON; run "
                          "a copy of this script from another tree's root to compare two trees")
     args = ap.parse_args()
 
@@ -1660,6 +1988,12 @@ def main() -> int:
                                                         batch_size=LONG_BATCH))
         cases += [traceback_case("long pass", *a, roof, plain_reps=0) for a in tb_seen]
         print(json.dumps(cases))
+        return 0
+
+    if args.only == "msv":
+        records = {}
+        launches = msv_phase(dev, records, roof)
+        print(json.dumps({"launches": launches, "records": records}))
         return 0
 
     if args.only in ("paired", "cli"):
@@ -1768,6 +2102,12 @@ def main() -> int:
         total[name] += v
     rescue_phase(dev)
     wide_phase(dev)
+
+    # ---- the SV caller at sv_bench.py's size: A in the counted passes, D
+    # in the connector's run
+    msv_launches = msv_phase(dev, records, roof)
+    for name, v in msv_launches.items():
+        total[name] += v
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     reference = sorted(m for m in sys.modules if m == "ma_tpu" or m.startswith("ma_tpu."))
@@ -1781,10 +2121,17 @@ def main() -> int:
     for k in kernels.KERNELS:
         out.append(dict(name=k.name, route="cuda", source=k.source, replaces=k.replaces,
                         launches=total[k.name], **records[k.name]))
-        if k is kernels.SOC_SWEEP:  # A's second timed case: the long pass's table
+        if k is kernels.SOC_SWEEP:  # A's other timed cases: the long pass's and MSV's tables
             out.append(dict(name="soc_sweep_long", route="cuda", source=k.source,
                             replaces=k.replaces, launches=long_launches[k.name],
                             **records["soc_sweep_long"]))
+            out.append(dict(name="soc_sweep_msv", route="cuda", source=k.source,
+                            replaces=k.replaces, launches=msv_launches[k.name],
+                            **records["soc_sweep_msv"]))
+        if k is kernels.DP_WAVEFRONT:  # D at the connector's shape
+            out.append(dict(name="dp_wavefront_connector", route="cuda", source=k.source,
+                            replaces=k.replaces, launches=msv_launches[k.name],
+                            **records["dp_wavefront_connector"]))
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

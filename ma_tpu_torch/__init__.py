@@ -13,9 +13,12 @@ Nothing here imports jax. Every entry point that allocates takes an explicit
 Ported: single-end short and long reads with every seeding technique
 (minimizers, with SDUST masking; the FMD techniques maxSpan, SMEMs and
 MEMs), small inversions, NGMLR tags, paired reads
-(`pipeline/paired.py`), `Aligner.align_to_sam`, and the command line
-`python -m ma_tpu_torch.cli` (index, align, paired, `--Serve`; on cuda
-unless given `--Device cpu`). See README.md, "PyTorch/CUDA port".
+(`pipeline/paired.py`), `Aligner.align_to_sam`, the MSV structural-variant
+caller (`msv/`: `compute_sv_jumps_batch(..., device=...)`,
+`sweep_sv_jumps`, the call filters, TSV/HTML output, the npz store,
+`reconstruct_sequenced_genome`), and the command line `python -m
+ma_tpu_torch.cli` (index, align, paired, `--Sv`, `--Serve`; on cuda unless
+given `--Device cpu`). See README.md, "PyTorch/CUDA port".
 """
 
 __version__ = "0.1.0"

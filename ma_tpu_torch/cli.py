@@ -14,7 +14,10 @@ Re-design of the reference CLI (reference: cmdMa.cpp:252-432):
 * `--Device cuda|cpu` picks the device (default cuda; no CUDA device and no
   `--Device cpu` is an error, never a silent CPU run); it is left out of
   the `@PG CL:` command, so the SAM equals ma_tpu's for the same flags
-* `--Sv` and `--GUI` are not ported yet and exit 1
+* `--Sv` calls structural variants (the MSV pipeline: jumps, sweep, calls
+  as TSV plus an SVG/HTML summary and an interactive view), on the same
+  device rule as alignment
+* `--GUI` is not ported yet and exits 1
 """
 from __future__ import annotations
 
@@ -27,7 +30,6 @@ from ma_tpu_torch import __version__
 from ma_tpu_torch.config.parameters import ParameterSetManager, normalize
 
 NOT_PORTED = {
-    "sv": "--Sv is not ported yet (ROADMAP.md Queue 1 #12, the MSV seed stage)",
     "gui": "--GUI is not ported yet (ROADMAP.md Queue 1 #14b)",
 }
 
@@ -134,6 +136,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     mate_files: List[str] = []
     out_path = None
     serve_path = None
+    sv_mode = False
     device_name = "cuda"
 
     try:
@@ -165,6 +168,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             if opt == "-o" or key == "sam_file_name":
                 out_path = nxt
                 i += 2
+                continue
+            if opt == "--Sv" or key == "sv":
+                sv_mode = True
+                i += 1
                 continue
             if key in NOT_PORTED:
                 raise RuntimeError(NOT_PORTED[key])
@@ -214,6 +221,9 @@ def main(argv: Optional[List[str]] = None) -> int:
             raise RuntimeError(
                 "both an index (-x) and at least one read file (-i) must be provided"
             )
+        if sv_mode:
+            return run_sv_calling(mgr, index_prefix, in_files, out_path,
+                                  _device(device_name))
         return run_alignment(mgr, index_prefix, in_files, mate_files, out_path,
                              _device(device_name))
     except (RuntimeError, KeyError) as ex:
@@ -247,6 +257,86 @@ def _command(argv: List[str]) -> str:
         kept.append(argv[i])
         i += 1
     return "ma-tpu " + " ".join(kept)
+
+
+def run_sv_calling(
+    mgr: ParameterSetManager,
+    index_prefix: str,
+    in_files: List[str],
+    out_path: Optional[str],
+    device,
+) -> int:
+    """--Sv mode: reads -> jumps -> calls -> TSV (+ SVG next to it) —
+    the MSV python scripts as one command (computeSvJumps.py +
+    sweepSvJumps.py flow over the in-memory store), the seed stage on
+    `device`."""
+    from ma_tpu_torch.containers.pack import Pack
+    from ma_tpu_torch.index.minimizer import MinimizerIndex
+    from ma_tpu_torch.io.fasta import read_reads
+    from ma_tpu_torch.msv.ambiguity import compute_call_ambiguity
+    from ma_tpu_torch.msv.html_view import render_interactive_html
+    from ma_tpu_torch.msv.inserted import compute_inserted_sequences
+    from ma_tpu_torch.msv.pipeline import compute_sv_jumps, seeds_for_reads, sweep_sv_jumps
+    from ma_tpu_torch.msv.render import calls_to_tsv, render_html
+
+    pack = Pack.load(index_prefix)
+    if MinimizerIndex.exists(index_prefix):
+        mmi = MinimizerIndex.load(index_prefix)
+    else:
+        mmi = MinimizerIndex.build(pack)
+    reads = []
+    for path in in_files:
+        reads.extend(read_reads(path))
+    g = mgr.selected.get
+    t0 = time.perf_counter()
+    jumps = compute_sv_jumps(
+        reads, pack, mmi,
+        min_seed_len=int(g("Minimal Seed Size SV")),
+        max_occ=int(g("Maximal Ambiguity SV")),
+        min_nt_in_soc=int(g("Min NT in SoC")),
+        device=device,
+    )
+    calls = sweep_sv_jumps(
+        jumps,
+        min_reads=int(g("Min Reads in call")),
+        max_supp_nt=int(g("Max Supp Nt")),
+        max_call_size=int(g("Max Call Size Filter")),
+        max_fuzziness=int(g("Max Fuzziness Filter")),
+    )
+    compute_call_ambiguity(calls, pack)
+    compute_inserted_sequences(calls, jumps, reads)
+    out = out_path or "calls.tsv"
+    calls_to_tsv(calls, out)
+    render_html(out + ".html", jumps, calls,
+                genome_len=pack.unpacked_size_forward_strand)
+
+    # seed dot-plots for the calls' supporting reads (cap the refetch)
+    supp_ids: List[int] = []
+    jump_by_id = {j.id: j for j in jumps}
+    for c in calls:
+        for jid in c.supporting_jump_ids or []:
+            j = jump_by_id.get(jid)
+            if j is not None:
+                supp_ids.append(int(j.read_id))
+    supp_ids = sorted(set(supp_ids))[:512]
+    rs = seeds_for_reads(
+        reads, pack, mmi, supp_ids,
+        min_seed_len=int(g("Minimal Seed Size SV")),
+        max_occ=int(g("Maximal Ambiguity SV")),
+        min_nt_in_soc=int(g("Min NT in SoC")),
+        device=device,
+    ) if supp_ids else {}
+    render_interactive_html(
+        out + ".view.html", jumps, calls,
+        genome_len=pack.unpacked_size_forward_strand,
+        read_seeds=rs, pack=pack,
+    )
+    print(
+        f"done. {len(reads)} reads -> {len(jumps)} jumps -> {len(calls)} "
+        f"calls in {time.perf_counter() - t0:.1f}s -> {out}",
+        file=sys.stderr,
+    )
+    return 0
 
 
 def run_alignment(

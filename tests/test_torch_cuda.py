@@ -653,3 +653,77 @@ def test_front_end_batch_on_card(cuda, case):
     cpu_sam, cpu_launches = _front_end_sam(case, torch.device("cpu"))
     assert cpu_launches == [0, 0, 0]
     assert sam == cpu_sam
+
+
+@pytest.fixture(scope="module")
+def msv_cpu():
+    """tests/test_torch_msv.py's SV problem in the port, with its CPU
+    JumpBatch: (pack, mmi, reads, jumps)."""
+    from ma_tpu_torch.msv.pipeline import compute_sv_jumps_batch
+    from test_torch_msv import objects, sv_data
+
+    pack, mmi, reads = objects("ma_tpu_torch", sv_data())
+    return pack, mmi, reads, compute_sv_jumps_batch(reads, pack, mmi, device="cpu")
+
+
+def test_msv_chunk_on_card(cuda, msv_cpu):
+    """One MSV chunk (104 reads, S = 2,048 seed slots, K = 64, non-
+    rectangular SoCs) on the card: kernel A launches once, the SocHost
+    download equals the CPU port's field for field, and the JumpBatch
+    column for column."""
+    from ma_tpu_torch import kernels
+    from ma_tpu_torch.msv.pipeline import SocHost, compute_sv_jumps_batch, sv_seed_stage
+    from test_torch_msv import JUMP_COLUMNS, chunk_arrays
+
+    pack, mmi, reads, want = msv_cpu
+    before = kernels.SOC_SWEEP.launches
+    got = compute_sv_jumps_batch(reads, pack, mmi, device=cuda)
+    assert kernels.SOC_SWEEP.launches == before + 1
+    assert len(want) > 100
+    for col in JUMP_COLUMNS:
+        assert np.array_equal(getattr(got, col), getattr(want, col)), col
+    seqs, lens = chunk_arrays(reads)
+    hosts = []
+    for dev in (cuda, torch.device("cpu")):
+        cst = torch.as_tensor(np.asarray(pack.starts, np.int32), device=dev)
+        soc = sv_seed_stage(mmi.to_device(dev), cst, pack.unpacked_size_forward_strand,
+                            seqs, lens, device=dev)
+        hosts.append(SocHost(soc, min_nt=25))
+    for f in SocHost.__slots__:
+        a, b = getattr(hosts[0], f), getattr(hosts[1], f)
+        assert a.shape == b.shape and np.array_equal(a, b), f
+
+
+def test_msv_connector_on_card(cuda, msv_cpu):
+    """connector_pattern_filter on the card: kernel D launches, its scores
+    equal the plain version's, and the kept calls equal the CPU port's."""
+    import ma_tpu_torch.msv.connector as conn
+    from ma_tpu_torch import kernels
+    from ma_tpu_torch.msv.pipeline import sweep_sv_jumps
+
+    pack, _, reads, jumps = msv_cpu
+    L = pack.unpacked_size_forward_strand
+    calls = [c for c in sweep_sv_jumps(jumps, min_reads=1)
+             if not any(p < L < p + 100 for p in (c.from_pos + max(c.from_size, 1),
+                                                   c.to_pos + max(c.to_size, 1)))][::8]
+    jl = jumps.to_jumps()
+    scores = {}
+    orig = conn.banded_align
+
+    def spy(*a, **kw):
+        res = orig(*a, **kw)
+        scores[a[0].device.type] = res.score.cpu()
+        return res
+
+    conn.banded_align = spy
+    try:
+        before = kernels.DP_WAVEFRONT.launches
+        got = conn.connector_pattern_filter(calls, jl, reads, pack, device=cuda)
+        assert kernels.DP_WAVEFRONT.launches > before
+        want = conn.connector_pattern_filter(calls, jl, reads, pack, device="cpu")
+    finally:
+        conn.banded_align = orig
+    assert torch.equal(scores["cuda"], scores["cpu"])
+    assert 0 < len(got) < len(calls)
+    assert [(c.from_pos, c.to_pos, c.supp_reads) for c in got] == \
+        [(c.from_pos, c.to_pos, c.supp_reads) for c in want]

@@ -1,8 +1,8 @@
 """The port stands alone: no module of ma_tpu_torch and no line of
 chip_smoke.py imports ma_tpu (at any depth, inside functions too), and a
 fresh interpreter that imports every module of ma_tpu_torch and aligns a
-few reads on the CPU with minimizers, maxSpan and MEMs has loaded no jax and
-no ma_tpu module."""
+few reads on the CPU with minimizers, maxSpan and MEMs, or runs the command
+line (paired reads, --Sv), has loaded no jax and no ma_tpu module."""
 import ast
 import os
 import pathlib
@@ -96,8 +96,14 @@ CLI_SCRIPT = textwrap.dedent("""
             p = int(p)
             f1.write(f"@r{i}\\n{seq[p : p + 150]}\\n+\\n{'I' * 150}\\n")
             f2.write(f"@r{i}\\n{seq[p + 250 : p + 400]}\\n+\\n{'I' * 150}\\n")
+    donor = seq[:10_000] + seq[10_500:]  # a 500 bp deletion
+    with open(d + "/s.fq", "w") as f:
+        for i, p in enumerate(range(9_000, 10_000, 100)):
+            f.write(f"@s{i}\\n{donor[p : p + 1000]}\\n+\\n{'I' * 1000}\\n")
     for argv in (["--Create_Index", d + "/g.fa," + d + ",idx"],
                  ["-x", d + "/idx", "-i", d + "/r1.fq", "-m", d + "/r2.fq", "-o", d + "/o.sam",
+                  "--Device", "cpu"],
+                 ["-x", d + "/idx", "-i", d + "/s.fq", "--Sv", "-o", d + "/c.tsv",
                   "--Device", "cpu"]):
         sys.argv = ["ma_tpu_torch"] + argv
         try:
@@ -105,14 +111,18 @@ CLI_SCRIPT = textwrap.dedent("""
         except SystemExit as ex:
             assert ex.code == 0, ex.code
     assert open(d + "/o.sam").read().count("\\n") == 3 + 8
+    assert open(d + "/c.tsv").read().splitlines()[1].startswith("9999\\t10499\\t")
+    assert "<svg" in open(d + "/c.tsv.html").read()
+    assert "const D = " in open(d + "/c.tsv.view.html").read()
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("ma_tpu", "jax"))
     print("LOADED", loaded)
 """)
 
 
 def test_cli_loads_no_jax_and_no_ma_tpu(tmp_path):
-    """`python -m ma_tpu_torch` (--Create_Index, then a paired run with
-    --Device cpu) in a fresh interpreter loads no jax and no ma_tpu module."""
+    """`python -m ma_tpu_torch` (--Create_Index, then a paired run and an
+    --Sv run with --Device cpu) in a fresh interpreter loads no jax and no
+    ma_tpu module."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     env["OMP_NUM_THREADS"] = "1"
     res = subprocess.run([sys.executable, "-c", CLI_SCRIPT, str(tmp_path)], capture_output=True,
