@@ -111,14 +111,31 @@ Phases (any failure raises and exits non-zero before the last line):
      must not be 0; the first 2,048 reads on device="cpu" must give the
      same JumpBatch column for column and the same calls; kernel A on the
      first chunk's table (B = 512, S = 2,048, K = 64, non-rectangular;
-     record "soc_sweep_msv"); connector_pattern_filter on the pass's calls
+     record "soc_sweep_msv"); the last pass's jumps through an SvDb file
+     (msv/sv_db.py, SQLite; insert, R*Tree index and load timed, jumps/s):
+     the loaded jumps must equal the stored ones field by field, their
+     sweep the in-memory sweep's calls (supporting jump ids mapped to row
+     ids), jumps_in_section a brute filter on 6 windows, and the calls
+     must come back from insert_calls / load_calls / calls_overlapping;
+     connector_pattern_filter on the pass's calls
      on the card: kernel D must launch, its scores equal its plain
      version's, the kept calls the CPU port's, and D is timed at that shape
      (record "dp_wavefront_connector"); then a 2 Mbp slice of the reference
      as FASTA, `--Create_Index` and `--Sv` in subprocesses (no jax or
      ma_tpu import) on 2,000 reads crossing the slice's SVs: calls.tsv,
      .html and .view.html must equal the in-process CPU port's byte for
-     byte. `--only msv` runs this phase alone.
+     byte. `--only msv` runs this phase alone;
+ 13. the web console (gui): ma_tpu_torch/gui.py served from this process on
+     127.0.0.1 at an ephemeral port, three actions posted through HTTP, all
+     on cuda: index the bench genome as FASTA; align 512 reads (Default
+     preset), with kernels A, B and C's launches in the action printed
+     (each must be > 0; not summed into the kernels record); `--Sv` on the
+     msv phase's 2 Mbp slice and its 2,000 reads. Each action must log
+     rc 0, and its SAM, or its calls.tsv, .html and .view.html, must equal
+     cli.main's in this process with the same arguments on cuda, byte for
+     byte; both SAM files are read back through io/sam_reader.py. `--only
+     gui` runs this phase alone (drawing the bench genome and the msv
+     workload first).
 
 The bound of a kernel (`bound_ms`) is the larger of the bytes it must move
 (each input read once, each output written once) over the card's memory rate
@@ -1669,6 +1686,106 @@ def call_rows(calls):
              c.supp_reads, c.supp_nt, tuple(c.supporting_jump_ids)) for c in calls]
 
 
+SV_WINDOWS = 6  # genome sections of jumps_in_section held against a brute filter
+
+
+def db_bytes(d: str) -> int:
+    """Bytes of the SQLite files in d (the database and its write-ahead log)."""
+    return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+
+
+def every_field(calls):
+    """Every field of each SvCall, the inserted sequence as a list."""
+    import dataclasses
+
+    return [tuple(v.tolist() if isinstance(v, np.ndarray) else v
+                  for v in dataclasses.astuple(c)) for c in calls]
+
+
+def svdb_case(jb, calls) -> None:
+    """The pass's jumps through an SvDb file (msv/sv_db.py, SQLite): insert,
+    the R*Tree index, load, and the sweep of the loaded jumps, each timed.
+    The loaded jumps must equal the stored ones in every field but the id
+    (the row's, in insertion order), their calls the in-memory sweep's
+    `calls` with each supporting jump id mapped to its row; jumps_in_section
+    must equal a brute filter of the columns on a few windows; the calls
+    must come back from insert_calls / load_calls / calls_overlapping."""
+    import dataclasses
+
+    from ma_tpu_torch.msv.pipeline import sweep_sv_jumps
+    from ma_tpu_torch.msv.sv_db import SvDb
+
+    t0 = time.perf_counter()
+    stored = jb.to_jumps()
+    t_obj = time.perf_counter() - t0
+    fields = ("from_pos", "to_pos", "query_from", "query_to", "from_forward", "to_forward",
+              "num_supporting_nt", "read_id", "was_mirrored")
+    row = lambda j: tuple(getattr(j, f) for f in fields)  # noqa: E731
+    with tempfile.TemporaryDirectory() as d, SvDb(os.path.join(d, "sv.db")) as sv:
+        run = sv.new_run("msv pass")
+        t0 = time.perf_counter()
+        sv.insert_jumps(run, stored)
+        t_ins = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sv.create_jump_indices(run)
+        t_idx = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = sv.load_jumps(run, params=jb.params)
+        t_load = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        db_calls = sweep_sv_jumps(loaded)
+        t_sweep = time.perf_counter() - t0
+        n = len(stored)
+        print(f"msv svdb: {n} jumps, insert {t_ins:.3f} s ({n / t_ins:.1f} jumps/s), R*Tree "
+              f"index {t_idx:.3f} s ({n / t_idx:.1f} jumps/s), load {t_load:.3f} s "
+              f"({n / t_load:.1f} jumps/s), {db_bytes(d)} bytes on disk; JumpBatch.to_jumps "
+              f"{t_obj:.3f} s; sweep of the loaded jumps "
+              f"{t_sweep:.3f} s", flush=True)
+        if len(loaded) != n or any(row(a) != row(b) for a, b in zip(stored, loaded)):
+            raise AssertionError("msv svdb: the loaded jumps differ from the stored ones")
+        to_row = {j.id: r.id for j, r in zip(stored, loaded)}
+        if len(to_row) != n or sorted(to_row.values()) != list(range(1, n + 1)):
+            raise AssertionError("msv svdb: the row ids are not 1..N in insertion order")
+        want = [dataclasses.replace(c, supporting_jump_ids=[to_row[i] for i in
+                                                            c.supporting_jump_ids])
+                for c in calls]
+        if every_field(db_calls) != every_field(want):
+            raise AssertionError("msv svdb: the loaded jumps' calls differ from the in-memory "
+                                 "sweep's")
+
+        lo = np.minimum(jb.from_pos, jb.to_pos)
+        hi = np.maximum(jb.from_pos, jb.to_pos)
+        rows_of = np.asarray([to_row[int(i)] for i in jb.id], np.int64)
+        rng = np.random.default_rng(SV_SEED + 2)
+        counts = []
+        for a in rng.integers(0, SV_GENOME_BP - 100_000, SV_WINDOWS):
+            a, b = int(a), int(a) + int(rng.integers(1_000, 100_000))
+            sel = np.flatnonzero((lo < b) & (hi >= a))
+            brute = sorted(zip(lo[sel].tolist(), rows_of[sel].tolist()))
+            got = [(min(j.from_pos, j.to_pos), j.id) for j in sv.jumps_in_section(run, a, b)]
+            if got != brute:
+                raise AssertionError(f"msv svdb: jumps_in_section({a}, {b}) differs from the "
+                                     f"brute filter ({len(got)} against {len(brute)})")
+            counts.append(len(got))
+
+        ids = sv.insert_calls(run, db_calls)
+        sv.create_call_indices(run)
+        back = sv.load_calls(run)
+        sorted_support = [dataclasses.replace(c, supporting_jump_ids=sorted(
+            c.supporting_jump_ids)) for c in db_calls]  # load_calls sorts them (ma_tpu's)
+        with_ids = [dataclasses.replace(c, id=i) for c, i in zip(sorted_support, ids)]
+        if every_field(back) != every_field(with_ids):
+            raise AssertionError("msv svdb: insert_calls / load_calls changed the calls")
+        for c, i in zip(db_calls, ids):
+            hit = sv.calls_overlapping(run, c.from_pos, c.from_pos + c.from_size + 1, c.to_pos,
+                                       c.to_pos + c.to_size + 1)
+            if i not in [h.id for h in hit]:
+                raise AssertionError(f"msv svdb: calls_overlapping misses call {i}")
+        print(f"msv svdb: {len(db_calls)} calls equal the in-memory sweep's; jumps_in_section on "
+              f"{SV_WINDOWS} windows ({counts} jumps) equal the brute filter; the calls came back "
+              f"from load_calls and calls_overlapping", flush=True)
+
+
 def msv_soc_inputs(reads, pack, mmi, dev):
     """Kernel A's operands as the MSV seed stage gives them on its first
     chunk (B = 512, S = 2,048 seed slots, K = 64, non-rectangular)."""
@@ -1775,10 +1892,10 @@ def sv_cli_files(ref, svs, donor, d: str):
     return len(inside)
 
 
-def msv_phase(dev, records, roof) -> dict:
+def msv_phase(dev, records, roof):
     """The MSV caller at scripts/sv_bench.py's size on the card; returns
     each kernel's launches in the counted passes (A) and in the connector's
-    run (D)."""
+    run (D), and the workload (reference, SVs, donor) for the gui phase."""
     import torch
 
     from ma_tpu_torch import kernels
@@ -1831,6 +1948,7 @@ def msv_phase(dev, records, roof) -> dict:
           f"({t_sweep:.2f} s, {len(jb) / max(t_sweep, 1e-9):.1f} jumps/s)", flush=True)
     for i, (_, w, ph) in enumerate(runs):
         print(f"msv pass {i}: {w:.2f} s, phases: {ph}", flush=True)
+    svdb_case(jb, calls)
     print(f"msv launches per pass: soc_sweep {a_per_pass:g} (chunks of {SV_BATCH}: "
           f"{-(-len(reads) // SV_BATCH)}); {json.dumps(launches)}", flush=True)
     if not (len(jb) and calls and hit and a_per_pass):
@@ -1876,7 +1994,144 @@ def msv_phase(dev, records, roof) -> dict:
               f"(rc {rc}); {n_calls} calls; tsv/html/view.html identical {same}", flush=True)
         if rc or not all(same) or n_calls < 1:
             raise AssertionError("msv cli: the card's --Sv files differ from the CPU port's")
-    return {"soc_sweep": launches["soc_sweep"], "dp_wavefront": d_launches}
+    return {"soc_sweep": launches["soc_sweep"], "dp_wavefront": d_launches}, (ref, svs, donor)
+
+
+class GuiServer:
+    """The port's web console (ma_tpu_torch/gui.py) served from this process
+    on 127.0.0.1 at an ephemeral port; `act` posts one action and returns
+    (wall s, its log lines) once the action's worker thread is done."""
+
+    def __enter__(self):
+        import threading
+        from http.server import ThreadingHTTPServer
+
+        from ma_tpu_torch import gui
+
+        self.gui = gui
+        gui._state.update(mgr=None, log=[], busy=False)
+        self.srv = ThreadingHTTPServer(("127.0.0.1", 0), gui._Handler)
+        self.url = f"http://127.0.0.1:{self.srv.server_address[1]}"
+        self.thread = threading.Thread(target=self.srv.serve_forever, daemon=True)
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.srv.shutdown()
+        self.srv.server_close()
+        self.thread.join()
+        return False
+
+    def act(self, form: dict, timeout: float = 600):
+        import urllib.parse
+        import urllib.request
+
+        gui = self.gui
+        with gui._lock:
+            if gui._state["busy"]:
+                raise AssertionError("gui: an action is still running")
+            gui._state["log"] = []
+        t0 = time.perf_counter()
+        urllib.request.urlopen(self.url + "/run", data=urllib.parse.urlencode(form).encode(),
+                               timeout=60).read()
+        while True:
+            with gui._lock:
+                if not gui._state["busy"]:
+                    break
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError(f"gui: {form['action']} still running after {timeout} s")
+            time.sleep(0.02)
+        wall = time.perf_counter() - t0
+        with gui._lock:
+            log = list(gui._state["log"])
+        # _run_action swallows exceptions so the server stays up: the rc is
+        # read from the log, and anything but [done rc=0] fails the phase
+        if not log or log[-1] != "[done rc=0]":
+            raise AssertionError(f"gui: {form['action']} did not end with rc 0:\n"
+                                 + "\n".join(log[-20:]))
+        return wall, log
+
+
+def same_files(a: str, b: str, suffixes) -> list:
+    return [open(a + s, "rb").read() == open(b + s, "rb").read() for s in suffixes]
+
+
+def gui_phase(dev, pack, sv_work) -> None:
+    """Three actions posted to the port's web console, all on cuda: index
+    the bench genome, align CLI_READS single-end reads (Default preset), and
+    call SVs (--Sv) on the msv phase's 2 Mbp slice and its reads. Each must
+    log rc 0, and its files must equal those of cli.main run in this process
+    with the same arguments and `--Device cuda`. Kernels A, B and C must
+    launch in the align action (their counts are printed, not summed into
+    the kernels record); both SAM files are read back through
+    io/sam_reader.py."""
+    import torch
+
+    from ma_tpu_torch import kernels
+    from ma_tpu_torch.cli import main as cli_main
+    from ma_tpu_torch.containers.nucseq import decode_seq
+    from ma_tpu_torch.io.sam_reader import read_sam
+
+    ref, svs, donor = sv_work
+    with tempfile.TemporaryDirectory() as d, GuiServer() as server:
+        fa = os.path.join(d, "genome.fa")
+        seq = decode_seq(np.asarray(pack.codes, np.uint8))
+        with open(fa, "w") as f:
+            f.write(">bench\n" + "\n".join(seq[i : i + 80] for i in range(0, len(seq), 80))
+                    + "\n")
+        write_fastq(os.path.join(d, "r.fq"), low_complexity_reads(pack, CLI_READS, seed=43,
+                                                                  every=0))
+        wall, _ = server.act({"action": "index", "device": "cuda", "fasta": fa, "outdir": d,
+                              "name": "gui"})
+        print(f"gui index: {wall:.1f} s for {len(seq)} bp", flush=True)
+
+        idx = os.path.join(d, "gui")
+        form = {"action": "align", "preset": "Default", "device": "cuda", "index": idx,
+                "reads": os.path.join(d, "r.fq"), "out": os.path.join(d, "gui.sam")}
+        reset_launches()
+        wall, log = server.act(form)
+        torch.cuda.synchronize()
+        launches = read_launches((kernels.SOC_SWEEP, kernels.LINESWEEP, kernels.DP_FUSED))
+        print(f"gui align launches (not in the kernels record): {json.dumps(launches)}",
+              flush=True)
+        if min(launches.values()) == 0:
+            raise AssertionError(f"gui align did not run kernels A, B, C: {launches}")
+        args = log[0][len("$ ma_tpu "):].split(" ")
+        want = ["-x", idx, "-i", form["reads"], "-o", form["out"], "--Device", "cuda"]
+        if args != want:
+            raise AssertionError(f"gui align ran {args}, not {want}")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(io.StringIO()):
+            rc = cli_main(want[:5] + [os.path.join(d, "cli.sam")] + want[6:])
+        cli_wall = time.perf_counter() - t0
+        same = same_files(os.path.join(d, "gui"), os.path.join(d, "cli"), (".sam",))
+        n_gui = sum(1 for _ in read_sam(os.path.join(d, "gui.sam")))
+        n_cli = sum(1 for _ in read_sam(os.path.join(d, "cli.sam")))
+        print(f"gui align: {CLI_READS} reads, action {wall:.1f} s, cli.main {cli_wall:.1f} s "
+              f"(rc {rc}); SAM identical {same[0]}; sam_reader: {n_gui} mapped records "
+              f"({n_cli} in cli.main's)", flush=True)
+        if rc or not same[0] or n_gui != n_cli or n_gui < CLI_READS * 0.99:
+            raise AssertionError("gui align: the SAM differs from cli.main's")
+
+        n_in = sv_cli_files(ref, svs, donor, d)
+        with contextlib.redirect_stderr(io.StringIO()):
+            if cli_main(["--Create_Index", f"{d}/sv.fa,{d},sv"]):
+                raise AssertionError("gui: --Create_Index of the SV slice failed")
+        form = {"action": "sv", "device": "cuda", "index": f"{d}/sv", "reads": f"{d}/sv.fq",
+                "out": f"{d}/gui.tsv"}
+        wall, log = server.act(form)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(io.StringIO()):
+            rc = cli_main(["--Sv", "-x", f"{d}/sv", "-i", f"{d}/sv.fq", "-o", f"{d}/cli.tsv",
+                           "--Device", "cuda"])
+        cli_wall = time.perf_counter() - t0
+        same = same_files(f"{d}/gui.tsv", f"{d}/cli.tsv", ("", ".html", ".view.html"))
+        n_calls = len(open(f"{d}/gui.tsv").read().splitlines()) - 1
+        print(f"gui sv: {SV_CLI_READS} reads over {n_in} SVs, action {wall:.1f} s, cli.main "
+              f"{cli_wall:.1f} s (rc {rc}); {n_calls} calls; tsv/html/view.html identical "
+              f"{same}", flush=True)
+        if rc or not all(same) or n_calls < 1:
+            raise AssertionError("gui sv: the files differ from cli.main's")
 
 
 def build_fmd(pack):
@@ -1913,13 +2168,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also run one pass under torch.profiler")
-    ap.add_argument("--only", choices=("soc", "dp", "traceback", "paired", "cli", "msv"),
+    ap.add_argument("--only", choices=("soc", "dp", "traceback", "paired", "cli", "msv", "gui"),
                     help="only one kernel's timed cases, printed as JSON: kernel A's two "
                          "(soc), kernels C and C' on the inputs of a full run (dp), the "
                          "traceback kernel on kernel D's two cases and the long pass's own "
                          "launches (traceback); or only the paired phase (paired), the "
                          "command-line phase (cli) or the SV caller's phase (msv), with each "
-                         "kernel's launches as JSON; run "
+                         "kernel's launches as JSON, or only the web console's phase (gui); run "
                          "a copy of this script from another tree's root to compare two trees")
     args = ap.parse_args()
 
@@ -1992,8 +2247,14 @@ def main() -> int:
 
     if args.only == "msv":
         records = {}
-        launches = msv_phase(dev, records, roof)
+        launches, _ = msv_phase(dev, records, roof)
         print(json.dumps({"launches": launches, "records": records}))
+        return 0
+
+    if args.only == "gui":
+        pack, _, _ = simulate(GENOME_BP, 1, READ_LEN)  # the bench genome
+        ref, svs, donor, _ = simulate_sv()
+        gui_phase(dev, pack, (ref, svs, donor))
         return 0
 
     if args.only in ("paired", "cli"):
@@ -2105,9 +2366,12 @@ def main() -> int:
 
     # ---- the SV caller at sv_bench.py's size: A in the counted passes, D
     # in the connector's run
-    msv_launches = msv_phase(dev, records, roof)
+    msv_launches, sv_work = msv_phase(dev, records, roof)
     for name, v in msv_launches.items():
         total[name] += v
+    # ---- the web console: index, align and --Sv actions on the card
+    gui_phase(dev, pack, sv_work)
+    del sv_work
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     reference = sorted(m for m in sys.modules if m == "ma_tpu" or m.startswith("ma_tpu."))

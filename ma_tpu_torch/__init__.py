@@ -15,10 +15,14 @@ Ported: single-end short and long reads with every seeding technique
 MEMs), small inversions, NGMLR tags, paired reads
 (`pipeline/paired.py`), `Aligner.align_to_sam`, the MSV structural-variant
 caller (`msv/`: `compute_sv_jumps_batch(..., device=...)`,
-`sweep_sv_jumps`, the call filters, TSV/HTML output, the npz store,
-`reconstruct_sequenced_genome`), and the command line `python -m
-ma_tpu_torch.cli` (index, align, paired, `--Sv`, `--Serve`; on cuda unless
-given `--Device cpu`). See README.md, "PyTorch/CUDA port".
+`sweep_sv_jumps`, the call filters, TSV/HTML output, the npz store and
+the SQLite `SvDb` over `db/`, `reconstruct_sequenced_genome`), the
+pledge-graph runtime (`ms/`), the command line `python -m ma_tpu_torch.cli`
+(index, align, paired, `--Sv`, `--Serve`, `--GUI`; on cuda unless given
+`--Device cpu`, or the web console's Device field), and the evaluation and
+host-filter tools (`io/sam_reader.py`, `ops/filters_host.py`,
+`ops/other_seeding.py`, `utils/printer.py`, `utils/simulate.py`). See
+README.md, "PyTorch/CUDA port".
 """
 
 __version__ = "0.1.0"

@@ -17,7 +17,8 @@ Re-design of the reference CLI (reference: cmdMa.cpp:252-432):
 * `--Sv` calls structural variants (the MSV pipeline: jumps, sweep, calls
   as TSV plus an SVG/HTML summary and an interactive view), on the same
   device rule as alignment
-* `--GUI` is not ported yet and exits 1
+* `--GUI [port]` serves the local web console (gui.py); its actions run
+  this command line in process, on the device its form names
 """
 from __future__ import annotations
 
@@ -28,11 +29,6 @@ from typing import List, Optional
 
 from ma_tpu_torch import __version__
 from ma_tpu_torch.config.parameters import ParameterSetManager, normalize
-
-NOT_PORTED = {
-    "gui": "--GUI is not ported yet (ROADMAP.md Queue 1 #14b)",
-}
-
 
 def _by_short(mgr: ParameterSetManager, c: str):
     try:
@@ -173,12 +169,20 @@ def main(argv: Optional[List[str]] = None) -> int:
                 sv_mode = True
                 i += 1
                 continue
-            if key in NOT_PORTED:
-                raise RuntimeError(NOT_PORTED[key])
             if opt == "--Serve" or key == "serve":
                 serve_path = nxt
                 i += 2
                 continue
+            if opt == "--GUI" or key == "gui":
+                # maGUI role (gui/src/maGUI.cpp:45-332): local web console
+                # generated from the parameter reflection (gui.py)
+                from ma_tpu_torch.gui import serve as gui_serve
+
+                port = 8765
+                if nxt is not None and _is_number(nxt):
+                    port = int(nxt)
+                gui_serve(port)
+                return 0
             if key == "device":
                 device_name = nxt
                 i += 2

@@ -1,7 +1,8 @@
 """Banded 2-piece affine-gap DP (port of ma_tpu/ops/dp.py): constants,
 scoring parameters, the direction-tensor DP and its traceback (kernel D and
 the traceback kernel, ops/dp_wavefront.py), the descriptor-mode entries of
-both DP kernels, and the host CIGAR decoders.
+both DP kernels, the host CIGAR decoders, and `nw_alignment`, a single global
+alignment through the direction-tensor DP.
 
 The port has one direction-tensor DP, the anti-diagonal wavefront. ma_tpu's
 `banded_align_traceback` picks its DP by MA_TPU_DP: unset it runs the XLA
@@ -343,3 +344,23 @@ def traceback_one(dirs: np.ndarray, si: int, sj: int):
         else:
             cigar.append((op, 1))
     return cigar
+
+
+def nw_alignment(q: np.ndarray, t: np.ndarray, params: DPParams = DPParams(), *, device):
+    """Plain global alignment of two sequences -> (score, cigar) — the
+    NWAlignment module's role (needlemanWunsch.h:131-156). Unbanded
+    (band = max(len)) single-problem convenience wrapper, on `device`."""
+    q = np.asarray(q, np.uint8)
+    t = np.asarray(t, np.uint8)
+    band = max(len(q), len(t), 1)
+    as_dev = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt, device=device)
+    ops, n_ops, rem_i, rem_j, score, _mi, _mj, _zd = banded_align_traceback(
+        as_dev(q[None] if len(q) else np.full((1, 1), 4, np.uint8), torch.uint8),
+        as_dev(t[None] if len(t) else np.full((1, 1), 4, np.uint8), torch.uint8),
+        as_dev([len(q) or 1], torch.int32),
+        as_dev([len(t) or 1], torch.int32),
+        as_dev([band], torch.int32),
+        params=params, zdrop=-1, is_global=True,
+    )
+    cigar = rle_ops(ops.cpu().numpy()[0], int(n_ops[0]), int(rem_i[0]), int(rem_j[0]))
+    return int(score[0]), cigar

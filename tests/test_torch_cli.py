@@ -251,18 +251,6 @@ def test_flag_errors_as_ma_tpu(argv, capsys):
     assert port == capsys.readouterr().err and port.startswith("Error:")
 
 
-@pytest.mark.parametrize("flag,item", [("--GUI", "#14b")])
-def test_unported_modes_exit_1(files, flag, item, capsys):
-    from ma_tpu_torch.cli import main
-
-    out = files / "unported.sam"
-    assert main([flag, "-x", str(files / "port/idx"), "-i", str(files / "r1.fq"), "-o",
-                 str(out), "--Device", "cpu"]) == 1
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and f"Queue 1 {item}" in err and "ROADMAP.md" in err
-    assert not out.exists()
-
-
 @pytest.fixture(scope="module")
 def sv_files(tmp_path_factory):
     """tests/test_torch_msv.py's SV problem as files (genome.fa, reads.fq),

@@ -727,3 +727,51 @@ def test_msv_connector_on_card(cuda, msv_cpu):
     assert 0 < len(got) < len(calls)
     assert [(c.from_pos, c.to_pos, c.supp_reads) for c in got] == \
         [(c.from_pos, c.to_pos, c.supp_reads) for c in want]
+
+
+def test_gui_align_on_card(cuda, tmp_path):
+    """An align action posted to the port's web console on cuda: rc 0, the
+    SAM equals cli.main's with the same arguments on cuda, and kernels A,
+    B and C launched in the action."""
+    import threading
+    import time
+    import urllib.parse
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from ma_tpu_torch import gui, kernels
+    from ma_tpu_torch.cli import main
+    from ma_tpu_torch.containers.nucseq import decode_seq
+
+    rng = np.random.default_rng(12)
+    seq = decode_seq(rng.integers(0, 4, size=30_000).astype(np.uint8))
+    (tmp_path / "genome.fa").write_text(">g\n" + seq + "\n")
+    with open(tmp_path / "reads.fq", "w") as f:
+        for i in range(64):
+            p = int(rng.integers(0, 30_000 - 150))
+            f.write(f"@r{i}\n{seq[p:p+150]}\n+\n{'I'*150}\n")
+    assert main(["--Create_Index", f"{tmp_path / 'genome.fa'},{tmp_path},idx"]) == 0
+    args = ["-x", str(tmp_path / "idx"), "-i", str(tmp_path / "reads.fq")]
+    flags = ["--Seeding Technique", "minimizers"]
+    gui._state.update(mgr=None, log=[], busy=False)
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), gui._Handler)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    ks = (kernels.SOC_SWEEP, kernels.LINESWEEP, kernels.DP_FUSED)
+    before = [k.launches for k in ks]
+    try:
+        form = {"action": "align", "device": "cuda", "index": args[1], "reads": args[3],
+                "out": str(tmp_path / "gui.sam"), "param:Seeding Technique": "minimizers"}
+        urllib.request.urlopen(f"http://127.0.0.1:{srv.server_address[1]}/run",
+                               data=urllib.parse.urlencode(form).encode())
+        t0 = time.time()
+        while gui._state["busy"] and time.time() - t0 < 300:
+            time.sleep(0.1)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    log = "\n".join(gui._state["log"])
+    assert log.endswith("[done rc=0]"), log
+    launches = [k.launches - b for k, b in zip(ks, before)]
+    assert min(launches) > 0, launches
+    assert main(args + ["-o", str(tmp_path / "cli.sam")] + flags + ["--Device", "cuda"]) == 0
+    assert (tmp_path / "gui.sam").read_bytes() == (tmp_path / "cli.sam").read_bytes()
