@@ -84,7 +84,8 @@ Phases (any failure raises and exits non-zero before the last line):
      inversion windows and records, host-clock stages, and each kernel's
      launches in those passes (all five must launch; D's per (P, M, N,
      mode)); kernel D on the inputs of its launches in the stage pass, at 4
-     and at 2 lanes a thread (the outputs must agree), and the traceback
+     and at 2 lanes a thread (the outputs must agree, and equal its plain
+     version's, which is timed there), and the traceback
      kernel on the inputs of its launches there; then the first 4 long
      reads on device="cpu" must give byte-identical SAM;
  10. long-read overflow rescue: 5 kb and 10 kb reads across a tandem repeat
@@ -135,7 +136,28 @@ Phases (any failure raises and exits non-zero before the last line):
      cli.main's in this process with the same arguments on cuda, byte for
      byte; both SAM files are read back through io/sam_reader.py. `--only
      gui` runs this phase alone (drawing the bench genome and the msv
-     workload first).
+     workload first);
+ 14. multi-process (ma_tpu_torch/parallel/): ranks are processes of
+     `python -m ma_tpu_torch.parallel.worker`, each run under a rendezvous
+     and collective timeout of PAR_TIMEOUT s and a wall limit. NCCL as one
+     rank on cuda:0 (init, all_reduce, all_gather); then two ranks sharing
+     cuda:0 over gloo with CUDA tensors (with two cards or more, a card a
+     rank over NCCL, and the line says so), on the earlier phases' indexes
+     stored once: the sum over the ranks and a probe of the collectives and
+     dtypes the backend takes; the msv phase's 50 Mbp minimizer index in two
+     hash-range shards, 4,096 msv reads seeded (one all_reduce a batch),
+     each read's seeds equal to the single-device lookup's on the card but
+     for reads over a hash where sharding changes ma_tpu's seeds (counted),
+     and the first 1,024 reads equal to the same ranks' on the CPU; the
+     bench genome's FMD index in two row shards, 512 bench reads under SMEMs
+     and maxSpan, equal field for field to the single-device path on the
+     card, with both times and the collectives a batch (the same on both
+     ranks); the 16,384 bench reads in two FASTQ files, one a rank
+     (shard_paths), aligned with minimizers: the merged SAM must equal one
+     process's on the same reads, A, B and C must launch on each rank, and
+     the two ranks' reads/s is printed beside one process's (median of 3).
+     One JSON line {"parallel": ...} holds every check and number. `--only
+     parallel` runs this phase alone (building its inputs first).
 
 The bound of a kernel (`bound_ms`) is the larger of the bytes it must move
 (each input read once, each output written once) over the card's memory rate
@@ -149,7 +171,8 @@ so `library_ms` is null.
 
 The line before the last is the kernels' JSON record (each kernel's
 launches summed over the counted main-path passes of phases 5-9 and 12, each
-read with the counts set to 0 just before it; "soc_sweep_long" and
+read with the counts set to 0 just before it, and A, B and C's launches in
+the aligning ranks of phase 14, each rank's set to 0 before its timed pass; "soc_sweep_long" and
 "soc_sweep_msv", A's other timed cases, with the long and the MSV passes'
 launches of A; "dp_wavefront_connector", D at the connector's shape, with
 its launches in the connector's run); the last line is
@@ -160,6 +183,7 @@ the end).
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -195,6 +219,14 @@ SV_RECALL_TOL = 1000  # bp between a call and an implanted site (sv_bench.py's c
 SV_CHECK_READS = 2048  # reads cross-checked against the CPU port
 SV_THREE_PASSES_BELOW_S = 45  # a first pass this fast keeps the phase near 3 min with 3
 SV_CLI_BP, SV_CLI_READS = 2_000_000, 2000  # the --Sv command line's slice and reads
+# the parallel phase: ranks, the sharded minimizer batch (msv reads over the
+# 50 Mbp index; ma_tpu's sharded_minimizer_seeding defaults: max_occ 50, 256
+# slots a shard), the reads re-run with the ranks on the CPU, the sharded FMD
+# batch (bench reads), the warm-up reads, and each run's limits in seconds
+PAR_WORLD, PAR_MM_READS, PAR_MM_SLOTS, PAR_MAX_OCC = 2, 4096, 256, 50
+PAR_CPU_MM_READS, PAR_FMD_READS, PAR_WARMUP = 1024, 512, 16
+PAR_TECHNIQUES = ("SMEMs", "maxSpan")
+PAR_TIMEOUT, PAR_WALL = 60, 300  # a rendezvous or collective; a run of ranks
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 INT32_LANES_PER_SM = 64
 # int32 operations that one in-band cell of ma_tpu_torch/ops/dp_rows.py's
@@ -873,7 +905,7 @@ def long_phase(dev, pack, reads, starts, records, roof,
 
     from ma_tpu_torch.utils.profile import AnalyzeRuntimes
     from ma_tpu_torch import kernels
-    from ma_tpu_torch.ops.dp_wavefront import banded_align_wavefront
+    from ma_tpu_torch.ops.dp_wavefront import banded_align_wavefront, banded_align_wavefront_plain
     from ma_tpu_torch.pipeline.aligner import Aligner
 
     def run(al, rs):
@@ -939,11 +971,15 @@ def long_phase(dev, pack, reads, starts, records, roof,
         N = args[1].shape[1]
         cells = P * (M + N - 1) * M
         bnd = roof.bound(nbytes(*args[:5]) + cells + 4 * 4 * P, cells * DP_OPS_PER_CELL)
+        err = max_abs_err(banded_align_wavefront(*args), banded_align_wavefront_plain(*args))
+        pms = time_ms(lambda: banded_align_wavefront_plain(*args), 1)
         print(f"long pass dp_wavefront: P={P} M={M} N={N} "
               f"{'global' if args[7] else 'extension'} (codes {args[0].dtype}): {lanes} lanes "
               f"a thread by default; {by_lanes}; by graph replay at {lanes} lanes {replay}; "
-              f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, every cell {cells} x "
-              f"{DP_OPS_PER_CELL} ops)", flush=True)
+              f"max_abs_err={err} plain {pms:.3f} ms; bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_by']}, every cell {cells} x {DP_OPS_PER_CELL} ops)", flush=True)
+        if err:
+            raise AssertionError(f"dp_wavefront differs from its plain version at {M}x{N}")
     for dirs, si, sj in tb_seen:
         traceback_case("long pass", dirs, si, sj, roof)
 
@@ -1895,7 +1931,8 @@ def sv_cli_files(ref, svs, donor, d: str):
 def msv_phase(dev, records, roof):
     """The MSV caller at scripts/sv_bench.py's size on the card; returns
     each kernel's launches in the counted passes (A) and in the connector's
-    run (D), and the workload (reference, SVs, donor) for the gui phase."""
+    run (D), the workload (reference, SVs, donor) for the gui phase, and
+    (pack, minimizer index, reads) for the parallel phase."""
     import torch
 
     from ma_tpu_torch import kernels
@@ -1994,7 +2031,8 @@ def msv_phase(dev, records, roof):
               f"(rc {rc}); {n_calls} calls; tsv/html/view.html identical {same}", flush=True)
         if rc or not all(same) or n_calls < 1:
             raise AssertionError("msv cli: the card's --Sv files differ from the CPU port's")
-    return {"soc_sweep": launches["soc_sweep"], "dp_wavefront": d_launches}, (ref, svs, donor)
+    return ({"soc_sweep": launches["soc_sweep"], "dp_wavefront": d_launches},
+            (ref, svs, donor), (pack, mmi, reads))
 
 
 class GuiServer:
@@ -2134,6 +2172,247 @@ def gui_phase(dev, pack, sv_work) -> None:
             raise AssertionError("gui sv: the files differ from cli.main's")
 
 
+def seed_keys(sb) -> np.ndarray:
+    """[B, S] int64: each read's valid seeds as sortable keys (reference
+    position, strand, query position, length), sorted, invalid slots last:
+    equal rows are equal seed multisets."""
+    key = ((sb["ref_start"].astype(np.int64) * 2 + sb["on_forward"]) * 2048
+           + sb["q_start"]) * 64 + sb["length"]
+    return np.sort(np.where(sb["valid"], key, np.iinfo(np.int64).max), axis=1)
+
+
+def mm_fault_hashes(mmi, world: int, max_occ: int) -> list:
+    """The hashes where hash-range sharding changes ma_tpu's seeds (ROADMAP
+    Queue 3): the last entry's, which the last shard's pads repeat, and any
+    hash whose occurrences straddle a shard boundary while the whole index
+    holds more than max_occ of them."""
+    hs = mmi.hash_sorted
+    n = len(hs)
+    per = -(-n // world)
+    out = [int(hs[-1])] if world * per > n else []
+    for b in range(per, n, per):
+        if hs[b - 1] == hs[b]:
+            occ = int(np.searchsorted(hs, hs[b], "right") - np.searchsorted(hs, hs[b], "left"))
+            if occ > max_occ:
+                out.append(int(hs[b]))
+    return out
+
+
+def parallel_phase(dev, bench, fmd, sv_index) -> dict:
+    """ma_tpu_torch/parallel/ on the card, every rank a process of
+    `python -m ma_tpu_torch.parallel.worker` under its own time limits:
+    NCCL as one rank on cuda:0; then PAR_WORLD ranks, sharing cuda:0 over
+    gloo (a card each over NCCL where there are enough cards), for the
+    cross-rank sum and a probe of what the backend takes, sharded minimizer
+    seeding of PAR_MM_READS msv reads over the msv phase's 50 Mbp index
+    (its seeds against the single-device lookup's on the card and, for the
+    first PAR_CPU_MM_READS reads, the same worker's on the CPU), sharded FMD
+    seeding of PAR_FMD_READS bench reads over the FMD phase's index (both
+    techniques, against the single-device path on the card), and the
+    data-parallel alignment of the bench reads, split in two FASTQ files by
+    shard_paths (the merged SAM against one process's, reads/s of both).
+    Prints one JSON line {"parallel": ...}; raises on any failed check after
+    it. Returns kernels A, B and C's launches in the ranks' alignment."""
+    import torch
+
+    from ma_tpu_torch.index.minimizer import MinimizerIndex, _sketch_arrays, minimizer_seeding
+    from ma_tpu_torch.io.fasta import read_reads
+    from ma_tpu_torch.ops.extract import extract_seeds
+    from ma_tpu_torch.ops.occ import FMDDev
+    from ma_tpu_torch.ops.seeding import max_spanning_seeding, smem_seeding
+    from ma_tpu_torch.parallel.multihost import merge_sam_shards
+    from ma_tpu_torch.parallel.worker import run_ranks
+
+    pack, reads, aligner = bench
+    sv_pack, sv_mmi, sv_reads = sv_index
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    if n_cards >= PAR_WORLD:
+        devices, backend = [f"cuda:{r}" for r in range(PAR_WORLD)], "nccl"
+    else:
+        devices, backend = ["cuda:0"] * PAR_WORLD, "gloo"
+    print(f"parallel: {PAR_WORLD} ranks on {devices} over {backend} ({n_cards} card(s)); "
+          f"NCCL first as one rank on cuda:0", flush=True)
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    run = dict(timeout=PAR_TIMEOUT, env=env)
+    checks: dict = {}
+    line: dict = {"backend": backend, "world": PAR_WORLD, "devices": devices,
+                  "device_count": n_cards, "checks": checks}
+    with tempfile.TemporaryDirectory() as d, \
+            concurrent.futures.ThreadPoolExecutor(1) as pool:
+        # ---- 1. NCCL, one rank on cuda:0: init, all_reduce, all_gather,
+        # while this process stores the inputs of the ranks below
+        os.mkdir(f"{d}/nccl")
+        t_nccl = time.perf_counter()
+        nccl = pool.submit(run_ranks, 1, f"{d}/nccl", "psum", devices=["cuda:0"],
+                           backend="nccl", wall_timeout=120, **run)
+
+        # ---- the earlier phases' indexes, stored once for the ranks
+        t0 = time.perf_counter()
+        w = f"{d}/ranks"
+        os.mkdir(w)
+        pack.store(f"{w}/g")
+        MinimizerIndex.build(pack).store(f"{w}/g")  # the short phase keeps only its device form
+        fmd.store(f"{w}/f")
+        sv_mmi.store(f"{w}/sv")
+        half = len(reads) // PAR_WORLD
+        for r_ in range(PAR_WORLD):
+            write_fastq(f"{w}/reads{r_}.fq", reads[r_ * half:(r_ + 1) * half])
+        mm_seqs = np.stack([r_.codes for r_ in sv_reads[:PAR_MM_READS]])
+        mm_lens = np.full(len(mm_seqs), mm_seqs.shape[1], np.int32)
+        mm_case = dict(contig_starts=np.asarray(sv_pack.starts, np.int32),
+                       ref_len_forward=sv_pack.unpacked_size_forward_strand, k=15, w=10,
+                       max_occ=PAR_MAX_OCC, max_seeds_per_shard=PAR_MM_SLOTS)
+        np.savez(f"{w}/seed-mm-sv.npz", index="sv", seqs=mm_seqs, lens=mm_lens, **mm_case)
+        f_seqs = np.stack([r_.codes for r_ in reads[:PAR_FMD_READS]])
+        f_lens = np.full(len(f_seqs), f_seqs.shape[1], np.int32)
+        np.savez(f"{w}/seed-fmd-bench.npz", index="f", seqs=f_seqs, lens=f_lens,
+                 contig_starts=np.asarray(pack.starts, np.int32),
+                 techniques=np.array(PAR_TECHNIQUES))
+        line["store_s"] = time.perf_counter() - t0
+        print(f"parallel inputs: bench pack, minimizer and FMD index, the msv index "
+              f"({len(sv_mmi.hash_sorted)} minimizers), {len(reads)} reads in {PAR_WORLD} "
+              f"FASTQ files, stored in {line['store_s']:.1f} s", flush=True)
+        r = nccl.result()[0]["results"]["psum"]
+        checks["nccl_one_rank"] = r["sum"] == 1 and set(r["probe"].values()) == {"ok"}
+        line["nccl_one_rank"] = {"probe": r["probe"], "s": time.perf_counter() - t_nccl}
+        print(f"parallel nccl, one rank: {r['probe']} ({line['nccl_one_rank']['s']:.1f} s "
+              f"with the process start, beside the store)", flush=True)
+
+        # ---- 2-5. the ranks: sum, sharded minimizers, sharded FMD, alignment
+        t0 = time.perf_counter()
+        res = run_ranks(PAR_WORLD, w, "psum,seed-mm,seed-fmd,align", devices=devices,
+                        backend=backend, wall_timeout=PAR_WALL,
+                        extra=("--batch-size", str(BATCH), "--warmup", str(PAR_WARMUP)), **run)
+        line["ranks_s"] = time.perf_counter() - t0
+        print(f"parallel ranks: {line['ranks_s']:.1f} s with the process starts; per rank "
+              + "; ".join(", ".join(f"{m} {r_['results'][m + '_s']:.1f} s"
+                                    for m in ("psum", "seed-mm", "seed-fmd", "align"))
+                          for r_ in res), flush=True)
+        psum = [r_["results"]["psum"] for r_ in res]
+        want = PAR_WORLD * (PAR_WORLD + 1) // 2
+        checks["sum"] = all(p["sum"] == want for p in psum)
+        line["probe"] = psum[0]["probe"]
+        print(f"parallel sum over {PAR_WORLD} ranks: {[p['sum'] for p in psum]} (want {want}); "
+              f"{backend} on {devices[0]} takes {psum[0]['probe']}", flush=True)
+
+        # ---- 3. sharded minimizers against the single-device lookup on the card
+        mm = [r_["results"]["seed-mm"][0] for r_ in res]
+        got = dict(np.load(f"{w}/seed-mm-sv.out.npz"))
+        sdev = sv_mmi.to_device(dev)
+        args = (torch.as_tensor(mm_seqs, device=dev), torch.as_tensor(mm_lens, device=dev),
+                torch.as_tensor(mm_case["contig_starts"], device=dev),
+                mm_case["ref_len_forward"])
+        single = lambda: minimizer_seeding(  # noqa: E731
+            sdev, *args, max_occ=PAR_MAX_OCC, max_seeds=PAR_WORLD * PAR_MM_SLOTS)
+        single()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sb = single()
+        torch.cuda.synchronize()
+        single_ms = (time.perf_counter() - t0) * 1e3
+        one = {k: v.cpu().numpy() for k, v in sb._asdict().items()}
+        over = got["overflow"] | one["overflow"]
+        differ = (seed_keys(got) != seed_keys(one)).any(1) & ~over
+        fault = mm_fault_hashes(sv_mmi, PAR_WORLD, PAR_MAX_OCC)
+        sel, h, _, _ = _sketch_arrays(args[0].to(torch.int32), 15, 10)
+        L = mm_seqs.shape[1]
+        sel &= torch.arange(L, device=dev)[None, :] + 15 <= args[1][:, None]
+        touch = (sel & torch.isin(h, torch.tensor(fault, dtype=h.dtype, device=dev))).any(1)
+        touch = touch.cpu().numpy()
+        n_seeds = int(got["n_seeds"].sum())
+        checks["mm_ranks_agree"] = all(m["n_seeds"] == n_seeds for m in mm)
+        checks["mm_seed_sets"] = not (differ & ~touch).any()
+        line["minimizers"] = {
+            "reads": len(mm_seqs), "index_entries": mm[0]["index_entries"],
+            "shard_entries": mm[0]["shard_entries"],
+            "shard_device_bytes": [m["shard_device_bytes"] for m in mm],
+            "bytes_reduced_per_batch": mm[0]["bytes_reduced"],
+            "collectives_per_batch": mm[0]["collectives"], "ms": [m["ms"] for m in mm],
+            "seeds": n_seeds, "seeds_per_s": n_seeds / (max(m["ms"] for m in mm) / 1e3),
+            "single_device_ms": single_ms, "fault_hashes": len(fault),
+            "reads_over_fault_hashes": int(touch.sum()), "reads_differing": int(differ.sum()),
+            "reads_overflowed": int(over.sum()), "chd_upload_s": [m["chd_upload_s"] for m in mm]}
+        print(f"parallel minimizers: {json.dumps(line['minimizers'])}", flush=True)
+
+        # ---- 4. sharded FMD against the single-device path on the card
+        fo = dict(np.load(f"{w}/seed-fmd-bench.out.npz"))
+        fdev = FMDDev.from_host(fmd, dev)
+        fs, fl = torch.as_tensor(f_seqs, device=dev), torch.as_tensor(f_lens, device=dev)
+        fc = torch.as_tensor(np.asarray(pack.starts, np.int32), device=dev)
+        line["fmd"] = {"reads": len(f_seqs), "slab_device_bytes":
+                       [r_["results"]["seed-fmd"][0]["slab_device_bytes"] for r_ in res]}
+        for tech in PAR_TECHNIQUES:
+            seed_fn = smem_seeding if tech == "SMEMs" else max_spanning_seeding
+            seed = lambda n: extract_seeds(fdev, seed_fn(fdev, fs[:n], fl[:n]), fl[:n], fc)  # noqa: E731
+            seed(PAR_WARMUP)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sb = seed(len(f_seqs))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            st = [r_["results"]["seed-fmd"][0][tech] for r_ in res]
+            checks[f"fmd_{tech}_equal"] = all(
+                np.array_equal(fo[f"{tech}.{k}"], v.cpu().numpy()) for k, v in sb._asdict().items())
+            checks[f"fmd_{tech}_same_collectives"] = len({s_["collectives"] for s_ in st}) == 1
+            line["fmd"][tech] = {
+                "sharded_ms": [s_["ms"] for s_ in st], "single_device_ms": ms,
+                "ratio": max(s_["ms"] for s_ in st) / ms, "collectives": st[0]["collectives"],
+                "bytes_reduced": st[0]["bytes_reduced"], "seeds": int(sb.n_seeds.sum())}
+            print(f"parallel fmd {tech}: {json.dumps(line['fmd'][tech])}", flush=True)
+
+        # ---- 5. the data-parallel alignment against one process on the card
+        parts = sorted(os.path.join(w, r_["results"]["align"]["out"]) for r_ in res)
+        n_rec = merge_sam_shards(parts, f"{w}/merged.sam")
+        fq_reads = [r_ for i in range(PAR_WORLD) for r_ in read_reads(f"{w}/reads{i}.fq")]
+        walls = []
+        for _ in range(PASSES):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            n = aligner.align_to_sam(iter(fq_reads), buf, batch_size=BATCH)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        one_s = statistics.median(walls)
+        with open(f"{w}/merged.sam") as f:
+            merged = f.read()
+        al = [r_["results"]["align"] for r_ in res]
+        launches = [a["launches"] for a in al]
+        abc = ("soc_sweep", "linesweep", "dp_fused")
+        checks["sam_identical"] = merged == buf.getvalue() and n == len(fq_reads)
+        checks["abc_on_every_rank"] = all(la[k] > 0 for la in launches for k in abc)
+        two_s = max(al[0]["walls_s"])
+        line["align"] = {"reads": len(fq_reads), "records": n_rec, "rank_reads":
+                         [a["reads"] for a in al], "walls_s": al[0]["walls_s"],
+                         "reads_per_s": len(fq_reads) / two_s, "one_process_s": walls,
+                         "one_process_reads_per_s": len(fq_reads) / one_s,
+                         "launches": launches}
+        print(f"parallel align: {json.dumps(line['align'])}", flush=True)
+
+        # ---- the same sharded minimizer batch's first rows, ranks on the CPU
+        c = f"{d}/cpu"
+        os.mkdir(c)
+        os.symlink(f"{w}/sv.mmi.npz", f"{c}/sv.mmi.npz")
+        np.savez(f"{c}/seed-mm-sv.npz", index="sv", seqs=mm_seqs[:PAR_CPU_MM_READS],
+                 lens=mm_lens[:PAR_CPU_MM_READS], **mm_case)
+        t0 = time.perf_counter()
+        run_ranks(PAR_WORLD, c, "seed-mm", devices=["cpu"] * PAR_WORLD, backend="gloo",
+                  wall_timeout=PAR_WALL, **run)
+        cpu = np.load(f"{c}/seed-mm-sv.out.npz")
+        checks["mm_card_equals_cpu"] = all(
+            np.array_equal(got[k][:PAR_CPU_MM_READS], cpu[k]) for k in cpu.files)
+        line["minimizers"]["cpu_check"] = {"reads": PAR_CPU_MM_READS,
+                                           "s": time.perf_counter() - t0}
+        print(f"parallel minimizers on the CPU: first {PAR_CPU_MM_READS} reads, equal to the "
+              f"card's {checks['mm_card_equals_cpu']} ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+    line["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"parallel": line}), flush=True)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"parallel: checks failed: {failed}")
+    return {k: sum(la[k] for la in launches) for k in abc}
+
+
 def build_fmd(pack):
     from ma_tpu_torch.index.fmd_index import FMDIndex
 
@@ -2168,13 +2447,15 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also run one pass under torch.profiler")
-    ap.add_argument("--only", choices=("soc", "dp", "traceback", "paired", "cli", "msv", "gui"),
+    ap.add_argument("--only", choices=("soc", "dp", "traceback", "paired", "cli", "msv", "gui",
+                                       "parallel"),
                     help="only one kernel's timed cases, printed as JSON: kernel A's two "
                          "(soc), kernels C and C' on the inputs of a full run (dp), the "
                          "traceback kernel on kernel D's two cases and the long pass's own "
                          "launches (traceback); or only the paired phase (paired), the "
                          "command-line phase (cli) or the SV caller's phase (msv), with each "
-                         "kernel's launches as JSON, or only the web console's phase (gui); run "
+                         "kernel's launches as JSON, or only the web console's phase (gui) or "
+                         "the multi-process phase (parallel); run "
                          "a copy of this script from another tree's root to compare two trees")
     args = ap.parse_args()
 
@@ -2247,7 +2528,7 @@ def main() -> int:
 
     if args.only == "msv":
         records = {}
-        launches, _ = msv_phase(dev, records, roof)
+        launches, _, _ = msv_phase(dev, records, roof)
         print(json.dumps({"launches": launches, "records": records}))
         return 0
 
@@ -2255,6 +2536,22 @@ def main() -> int:
         pack, _, _ = simulate(GENOME_BP, 1, READ_LEN)  # the bench genome
         ref, svs, donor, _ = simulate_sv()
         gui_phase(dev, pack, (ref, svs, donor))
+        return 0
+
+    if args.only == "parallel":
+        from ma_tpu_torch.containers.pack import Pack
+        from ma_tpu_torch.index.minimizer import MinimizerIndex
+
+        pack, reads, _ = simulate(GENOME_BP, N_READS, READ_LEN)
+        aligner = Aligner(pack, device=dev)
+        aligner.pset.set("Seeding Technique", "minimizers")
+        aligner.align_to_sam(iter(reads[:BATCH]), io.StringIO(), batch_size=BATCH)
+        ref, _, _, sv_reads = simulate_sv()
+        sv_pack = Pack.empty()
+        sv_pack.append("chrS", ref)
+        sv_mmi = MinimizerIndex.build(sv_pack)
+        print(json.dumps(parallel_phase(dev, (pack, reads, aligner), build_fmd(pack),
+                                        (sv_pack, sv_mmi, sv_reads))))
         return 0
 
     if args.only in ("paired", "cli"):
@@ -2346,7 +2643,6 @@ def main() -> int:
     # ---- paired reads (Illumina Paired and Default + -m), counted
     for name, v in paired_phase(dev, pack, fmd).items():
         total[name] += v
-    del fmd
 
     # ---- the command line in subprocesses; SDUST and NGMLR passes, counted
     for name, v in cli_phase(dev, pack).items():
@@ -2366,12 +2662,17 @@ def main() -> int:
 
     # ---- the SV caller at sv_bench.py's size: A in the counted passes, D
     # in the connector's run
-    msv_launches, sv_work = msv_phase(dev, records, roof)
+    msv_launches, sv_work, sv_index = msv_phase(dev, records, roof)
     for name, v in msv_launches.items():
         total[name] += v
     # ---- the web console: index, align and --Sv actions on the card
     gui_phase(dev, pack, sv_work)
     del sv_work
+    # ---- multi-process: NCCL, gloo, the sharded indexes, two aligning
+    # ranks; A, B and C's launches in the ranks' alignment, counted
+    for name, v in parallel_phase(dev, (pack, reads, aligner), fmd, sv_index).items():
+        total[name] += v
+    del fmd, sv_index
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     reference = sorted(m for m in sys.modules if m == "ma_tpu" or m.startswith("ma_tpu."))

@@ -57,10 +57,12 @@ def compute_delta(q_start, length, ref_start, on_forward, qlen, contig_starts,
 
 def extract_seeds(fmd: FMDDev, segs, qlen: torch.Tensor, contig_starts: torch.Tensor,
                   max_seeds: int = 512, max_ambiguity: int = 100, min_seed_len: int = 16,
-                  skip_ambiguous: bool = False, rectangular: bool = True) -> SeedBatch:
+                  skip_ambiguous: bool = False, rectangular: bool = True,
+                  sa_fn=None) -> SeedBatch:
     """Seeds of a SegmentBatch (ops/seeding.py): [B, max_seeds] per field.
     Output slot k of a read belongs to the first segment whose inclusive
-    count prefix exceeds k."""
+    count prefix exceeds k. `sa_fn` replaces sa_lookup (the row-sharded
+    index, parallel/sharded_fmd.py); `fmd` then needs only `.n`."""
     B, S = segs.q_start.shape
     dev = segs.q_start.device
     qlen = qlen.to(torch.int32)
@@ -87,7 +89,7 @@ def extract_seeds(fmd: FMDDev, segs, qlen: torch.Tensor, contig_starts: torch.Te
     valid = (k < total[:, None]) & (j >= 0) & (j < take(cnt))
     rows = take(segs.sai_start) + j * take(jump)
     rows = torch.where(valid, rows, 1)  # row 1 is always a legal BWT row
-    pos = sa_lookup(fmd, rows)
+    pos = (sa_fn or sa_lookup)(fmd, rows)
 
     half = fmd.n // 2
     on_forw = pos < half

@@ -134,12 +134,14 @@ def init_interval(fmd: FMDDev, c: torch.Tensor) -> SAI:
     )
 
 
-def extend_backward(fmd: FMDDev, ik: SAI, c: torch.Tensor) -> SAI:
+def extend_backward(fmd: FMDDev, ik: SAI, c: torch.Tensor, occ4_fn=None) -> SAI:
     """Backward extension by char c, updating the revcomp interval. Where
-    c >= 4 or ik.size <= 0 the result is the empty interval."""
+    c >= 4 or ik.size <= 0 the result is the empty interval. `occ4_fn`
+    replaces the occ lookup (the row-sharded index, parallel/sharded_fmd.py);
+    `fmd` then needs only `.primary` and `.L2`."""
     c = c.to(torch.int32)
-    # both occ lookups in one batched call
-    cnt = occ4(fmd, torch.stack([ik.start - 1, ik.start + ik.size - 1], -1))
+    # both occ lookups in one batched call: one occ4_fn call an extension
+    cnt = (occ4_fn or occ4)(fmd, torch.stack([ik.start - 1, ik.start + ik.size - 1], -1))
     cntk, cntl = cnt[..., 0, :], cnt[..., 1, :]
     cnts = cntl - cntk  # [..., 4]
     straddles = (ik.start <= fmd.primary) & (ik.start + ik.size > fmd.primary)
@@ -171,7 +173,14 @@ SA_CHECK_EVERY = 8  # LF steps between two host checks of the live lanes
 
 
 def sa_lookup(fmd: FMDDev, k: torch.Tensor) -> torch.Tensor:
-    """Text positions of BWT rows k: LF steps up to a sampled row.
+    """Text positions of BWT rows k: LF steps up to a sampled row."""
+    return sa_walk(k, lambda kc: inv_psi(fmd, kc), lambda i: fmd.ssa[i.long()])
+
+
+def sa_walk(k: torch.Tensor, lf, sampled) -> torch.Tensor:
+    """The sampled-SA walk of rows k: `lf(rows)` is one LF step, `sampled(i)`
+    the sampled SA at slots i (sa_lookup's, or the row-sharded index's
+    collective forms).
 
     The SA is sampled by ROW (every SA_INTERVAL-th row), so a walk has no
     fixed bound: each step lands on a sampled row with probability ~1/32,
@@ -189,7 +198,7 @@ def sa_lookup(fmd: FMDDev, k: torch.Tensor) -> torch.Tensor:
     while True:
         for _ in range(SA_CHECK_EVERY):
             active = (kc & (SA_INTERVAL - 1)) != 0
-            kc = torch.where(active, inv_psi(fmd, kc), kc)
+            kc = torch.where(active, lf(kc), kc)
             sc = sc + active.to(torch.int32)
         k[idx] = kc
         steps[idx] = sc
@@ -197,4 +206,4 @@ def sa_lookup(fmd: FMDDev, k: torch.Tensor) -> torch.Tensor:
         if live.numel() == 0:
             break
         idx, kc, sc = idx[live], kc[live], sc[live]
-    return (steps + fmd.ssa[(k >> 5).long()]).reshape(shape)
+    return (steps + sampled(k >> 5)).reshape(shape)

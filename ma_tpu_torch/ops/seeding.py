@@ -165,9 +165,13 @@ def _split(st, cov_s, cov_e, max_stack: int, split_phase: int, new_phase: int,
 
 def max_spanning_seeding(fmd: FMDDev, seqs: torch.Tensor, lens: torch.Tensor,
                          max_segs: int = 64, max_stack: int = 16, min_ambiguity: int = 0,
-                         max_ambiguity: int = 100, iter_cap: int | None = None) -> SegmentBatch:
+                         max_ambiguity: int = 100, iter_cap: int | None = None,
+                         ext_ops=None) -> SegmentBatch:
     """Maximally-spanning seeding of a batch: seqs [B, L] codes (pad 4),
-    lens [B]. Empty reads give no segments."""
+    lens [B]. Empty reads give no segments. `ext_ops` replaces
+    (init_interval, extend_backward): the row-sharded index's collective
+    lookups (parallel/sharded_fmd.py) run the state machine unchanged."""
+    init_iv, extend = ext_ops or (init_interval, extend_backward)
     seqs = seqs.to(torch.int32)
     B, L = seqs.shape
     dev = seqs.device
@@ -190,7 +194,7 @@ def max_spanning_seeding(fmd: FMDDev, seqs: torch.Tensor, lens: torch.Tensor,
         in_right = (phase == P_RIGHT1) | (phase == P_RIGHT2)
         in_left = (phase == P_LEFT1) | (phase == P_LEFT2)
         qi = _gather_q(seqs, st.i)
-        ok = extend_backward(fmd, st.ik, torch.where(in_right, _comp(qi), qi))
+        ok = extend(fmd, st.ik, torch.where(in_right, _comp(qi), qi))
         brk = (ok.size <= 0) | ((ok.size <= min_ambiguity) & (st.ik.size <= max_ambiguity))
         in_bounds = torch.where(in_right, st.i < lens, st.i >= 0)
         step_ok = in_bounds & ~brk
@@ -208,7 +212,7 @@ def max_spanning_seeding(fmd: FMDDev, seqs: torch.Tensor, lens: torch.Tensor,
         at_new = phase == P_NEW_CENTER
         ctr = st.s + (st.e - st.s) // 2
         qc = _gather_q(seqs, ctr)
-        ik_init = init_interval(fmd, _comp(qc))
+        ik_init = init_iv(fmd, _comp(qc))
         init_fail = (qc >= 4) | (ik_init.size == 0)
         # N / absent char: covered = [center, center + 1)
         next_phase = torch.where(at_new, torch.where(init_fail, P_SPLIT, P_RIGHT1), phase)
@@ -229,7 +233,7 @@ def max_spanning_seeding(fmd: FMDDev, seqs: torch.Tensor, lens: torch.Tensor,
         # ---- P_LEFT1 exit: emplace segment 1, init the second block
         ex_l1 = (phase == P_LEFT1) & exiting
         segs = _emplace(segs, ex_l1, st1, en1 - st1, ik_out)
-        ik2 = init_interval(fmd, _gather_q(seqs, st.center))
+        ik2 = init_iv(fmd, _gather_q(seqs, st.center))
         next_phase = torch.where(ex_l1, P_LEFT2, next_phase)
         ik_out = sai_where(ex_l1, ik2, ik_out)
         i_out = torch.where(ex_l1, st.center - 1, i_out)
@@ -288,12 +292,14 @@ class _SmemState(NamedTuple):
 
 def smem_seeding(fmd: FMDDev, seqs: torch.Tensor, lens: torch.Tensor, max_segs: int = 64,
                  max_stack: int = 16, max_pending: int = 16, min_ambiguity: int = 0,
-                 max_ambiguity: int = 100, iter_cap: int | None = None) -> SegmentBatch:
+                 max_ambiguity: int = 100, iter_cap: int | None = None,
+                 ext_ops=None) -> SegmentBatch:
     """Li's SMEM extension scheme, batched: per center a forward extension
     that records an interval at every hit loss, then one joint backward
     extension of all recorded intervals ([B, K] per step), emitting the
     non-enclosed maximal matches. Center selection and splitting as in
-    max_spanning_seeding."""
+    max_spanning_seeding; `ext_ops` as there."""
+    init_iv, extend = ext_ops or (init_interval, extend_backward)
     seqs = seqs.to(torch.int32)
     B, L = seqs.shape
     K = max_pending
@@ -331,7 +337,7 @@ def smem_seeding(fmd: FMDDev, seqs: torch.Tensor, lens: torch.Tensor, max_segs: 
         at_new = phase == S_NEW
         ctr = st.s + (st.e - st.s) // 2
         qc = _gather_q(seqs, ctr)
-        ik_init = init_interval(fmd, _comp(qc))
+        ik_init = init_iv(fmd, _comp(qc))
         init_fail = (qc >= 4) | (ik_init.size == 0)
         next_phase = torch.where(at_new, torch.where(init_fail, S_SPLIT, S_FWD), phase)
         center_out = torch.where(at_new, ctr, st.center)
@@ -345,7 +351,7 @@ def smem_seeding(fmd: FMDDev, seqs: torch.Tensor, lens: torch.Tensor, max_segs: 
         at_fwd = phase == S_FWD
         qi = _gather_q(seqs, st.i)
         in_bounds = st.i < lens
-        ok = extend_backward(fmd, st.ik, _comp(qi))
+        ok = extend(fmd, st.ik, _comp(qi))
         lost = at_fwd & in_bounds & (ok.size != st.ik.size)
         # the interval before the loss (its revcomp; query span [center, i - 1])
         pend = push_pending(pend, lost, st.center, st.i - st.center - 1, st.ik.rev_comp())
@@ -377,7 +383,7 @@ def smem_seeding(fmd: FMDDev, seqs: torch.Tensor, lens: torch.Tensor, max_segs: 
         at_bwd = phase == S_BWD
         live = karr[None, :] < st.p_n[:, None]
         qi_b = _gather_q(seqs, st.i)[:, None].expand(B, K)
-        okk = extend_backward(fmd, st.p_sai, qi_b)
+        okk = extend(fmd, st.p_sai, qi_b)
         # the first live entry whose extension dies is emplaced in its
         # pre-extension state (later ones are enclosed)
         dead = live & (okk.size <= min_ambiguity)

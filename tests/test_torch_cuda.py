@@ -775,3 +775,54 @@ def test_gui_align_on_card(cuda, tmp_path):
     assert min(launches) > 0, launches
     assert main(args + ["-o", str(tmp_path / "cli.sam")] + flags + ["--Device", "cuda"]) == 0
     assert (tmp_path / "gui.sam").read_bytes() == (tmp_path / "cli.sam").read_bytes()
+
+
+def test_parallel_nccl_one_rank_on_card(cuda, tmp_path):
+    """A one-rank NCCL group on cuda:0 (a worker process): init, all_reduce,
+    all_gather."""
+    from ma_tpu_torch.parallel.worker import run_ranks
+
+    res = run_ranks(1, str(tmp_path), "psum", devices=["cuda:0"], backend="nccl",
+                    timeout=60.0, wall_timeout=300.0)
+    p = res[0]["results"]["psum"]
+    assert (res[0]["backend"], p["sum"]) == ("nccl", 1)
+    assert set(p["probe"].values()) == {"ok"}, p["probe"]
+
+
+def test_parallel_gloo_ranks_share_the_card_on_sharded_fmd(cuda, tmp_path):
+    """Two gloo ranks sharing cuda:0 with CUDA tensors: the sum over the
+    ranks, and the row-sharded FMD lookups and seeding equal the
+    single-device ones on the card."""
+    from ma_tpu_torch.index.fmd_index import FMDIndex
+    from ma_tpu_torch.ops.extract import extract_seeds
+    from ma_tpu_torch.ops.occ import FMDDev, occ4, sa_lookup
+    from ma_tpu_torch.ops.seeding import max_spanning_seeding, smem_seeding
+    from ma_tpu_torch.parallel.worker import run_ranks
+    from test_torch_parallel import TECHNIQUES, _fmd_batch, _fmd_genome, _pack
+
+    g = _fmd_genome()
+    pack = _pack("ma_tpu_torch", [("c0", g[:12_000]), ("c1", g[12_000:])])
+    fmd = FMDIndex.build(pack)
+    fmd.store(str(tmp_path / "f"))
+    seqs, lens = _fmd_batch()
+    ks = np.concatenate([[-1, 0, 1], np.random.default_rng(4).integers(0, fmd.n, 61)])
+    cst = np.asarray(pack.starts, np.int32)
+    np.savez(tmp_path / "seed-fmd-card.npz", index="f", seqs=seqs, lens=lens,
+             contig_starts=cst, techniques=np.array(TECHNIQUES), occ_k=ks.astype(np.int32),
+             sa_rows=np.abs(ks).astype(np.int32))
+    res = run_ranks(2, str(tmp_path), "psum,seed-fmd", devices=["cuda:0", "cuda:0"],
+                    backend="gloo", timeout=60.0, wall_timeout=300.0)
+    assert [r["results"]["psum"]["sum"] for r in res] == [3, 3]
+    assert [r["device"] for r in res] == ["cuda:0", "cuda:0"]
+    got = np.load(tmp_path / "seed-fmd-card.out.npz")
+    dev = FMDDev.from_host(fmd, cuda)
+    k = torch.as_tensor(ks, dtype=torch.int32, device=cuda)
+    assert np.array_equal(got["occ4"], occ4(dev, k).cpu().numpy())
+    assert np.array_equal(got["sa"], sa_lookup(dev, k.abs()).cpu().numpy())
+    s, n = torch.as_tensor(seqs, device=cuda), torch.as_tensor(lens, device=cuda)
+    for tech, seed_fn in zip(TECHNIQUES, (smem_seeding, max_spanning_seeding)):
+        sb = extract_seeds(dev, seed_fn(dev, s, n), n, torch.as_tensor(cst, device=cuda))
+        for f, v in sb._asdict().items():
+            assert np.array_equal(got[f"{tech}.{f}"], v.cpu().numpy()), (tech, f)
+        counts = {r["results"]["seed-fmd"][0][tech]["collectives"] for r in res}
+        assert len(counts) == 1
