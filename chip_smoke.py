@@ -106,7 +106,7 @@ Phases (any failure raises and exits non-zero before the last line):
      warm-up on 512 reads, then compute_sv_jumps_batch(device="cuda") and
      sweep_sv_jumps: jumps, calls, sv_recall (implanted sites with a call
      within 1,000 bp), reads/s and jumps/s, the sweep's jumps/s, the
-     MA_TPU_SV_PROFILE phase split and kernel A's launches per pass (one a
+     tracer's `sv` span split and kernel A's launches per pass (one a
      chunk of 512; the median of 3 passes when the first takes under 45 s,
      else that one pass, as printed); jumps, calls, recall and A's launches
      must not be 0; the first 2,048 reads on device="cpu" must give the
@@ -1178,53 +1178,37 @@ def first_diff(a: str, b: str) -> int:
 
 
 def fmd_stage_split(al, reads) -> str:
-    """Host-clock split of the FMD device stage on one batch, each part
-    ended by a device synchronize: seeding (with its state-machine steps),
-    seed extraction, and SoC + harmonization + packing."""
-    import torch
-
-    from ma_tpu_torch.ops import seeding
-    from ma_tpu_torch.ops.extract import extract_seeds
-    from ma_tpu_torch.pipeline.aligner import DeviceStageConfig, _stage_tail
+    """The FMD device stage on one batch, split by the tracer's spans inside
+    it (host clock, and the device interval of each from its CUDA events):
+    seeding with its state-machine steps (the `fmd steps` counter), seed
+    extraction, and SoC + harmonization + packing."""
+    from ma_tpu_torch.utils.profile import AnalyzeRuntimes, stage_timer
 
     seqs, lens = al._pad_batch(reads, len(reads))
-    cfg = DeviceStageConfig.from_params(al.pset, seqs.shape[1])
-    fmd, cs = al.fmd_dev(), al.contig_starts
-    seqs_d = torch.as_tensor(seqs, device=al.device)
-    lens_d = torch.as_tensor(lens, device=al.device)
-    steps = [0]
-    run = seeding._run
-
-    def counted(step, st, done_phase, iter_cap):
-        def one(x):
-            steps[0] += 1
-            return step(x)
-        return run(one, st, done_phase, iter_cap)
-
-    seed_fn = seeding.smem_seeding if cfg.seeding_technique == "SMEMs" else \
-        seeding.max_spanning_seeding
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    seeding._run = counted
+    tr = al.profiler = AnalyzeRuntimes()
     try:
-        segs = seed_fn(fmd, seqs_d, lens_d, max_segs=cfg.max_segs,
-                       min_ambiguity=cfg.min_ambiguity, max_ambiguity=cfg.max_ambiguity)
+        with stage_timer(tr, "device seed+soc+harmonize"):
+            _harm, soc, _data, _meta, _seqs_d = al.run_device_stage(seqs, lens)
+        n_seeds = int(soc.seeds.n_seeds.sum())
     finally:
-        seeding._run = run
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    seeds = extract_seeds(fmd, segs, lens_d, cs, max_seeds=cfg.max_seeds,
-                          max_ambiguity=cfg.max_ambiguity, min_seed_len=cfg.min_seed_len,
-                          skip_ambiguous=cfg.skip_ambiguous, rectangular=cfg.rectangular)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    _stage_tail(cfg, seeds, lens_d, cs, fmd.n)
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
-    return (f"{cfg.seeding_technique} device stage on {len(reads)} reads: seeding "
-            f"{t1 - t0:.3f} s ({steps[0]} steps, {(t1 - t0) / max(steps[0], 1) * 1e3:.2f} ms "
-            f"per step), extraction {t2 - t1:.3f} s ({int(seeds.n_seeds.sum())} seeds), SoC + "
-            f"harmonization + packing {t3 - t2:.3f} s")
+        al.profiler = None
+    host, dev = tr.times, {}
+    for name, s, e in tr.device_intervals():
+        dev[name] = dev.get(name, 0.0) + e - s
+
+    def part(*names):
+        h = sum(host.get(n, 0.0) for n in names)
+        d = sum(dev.get(n, 0.0) for n in names)
+        return (h, f"{h:.3f} / {d:.3f}" if dev else f"{h:.3f}")
+
+    (seed_h, seed), (_, ext) = part("seeding"), part("seed extraction")
+    _, tail = part("soc", "harmonization", "set packing")
+    steps = tr.counters.get("fmd steps", 0)
+    return (f"{al.pset.get('Seeding Technique')} device stage on {len(reads)} reads "
+            f"(host s{' / device s' if dev else ''}): seeding {seed} ({steps} steps, "
+            f"{seed_h / max(steps, 1) * 1e3:.2f} ms per step), extraction {ext} "
+            f"({n_seeds} seeds), SoC + harmonization + packing {tail}; "
+            f"{tr.counters.get('host syncs', 0)} host syncs")
 
 
 def fmd_phase(dev, pack, fmd, reads, starts) -> dict:
@@ -1691,24 +1675,25 @@ def sv_recall(calls, svs) -> int:
 
 
 def sv_pass(reads, pack, mmi, dev):
-    """One compute_sv_jumps_batch pass on `dev` under MA_TPU_SV_PROFILE,
-    ending in a synchronize: (JumpBatch, wall s, its phase line)."""
+    """One compute_sv_jumps_batch pass on `dev` under the tracer, ending in a
+    synchronize: (JumpBatch, wall s, its phase line from the `sv` spans)."""
     import torch
 
     from ma_tpu_torch.msv.pipeline import compute_sv_jumps_batch
+    from ma_tpu_torch.utils import profile
 
-    err = io.StringIO()
-    os.environ["MA_TPU_SV_PROFILE"] = "1"
+    tr = profile.AnalyzeRuntimes()
+    profile.install(tr, dev)
     try:
-        with contextlib.redirect_stderr(err):
-            t0 = time.perf_counter()
-            jb = compute_sv_jumps_batch(reads, pack, mmi, batch=SV_BATCH, device=dev)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        jb = compute_sv_jumps_batch(reads, pack, mmi, batch=SV_BATCH, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     finally:
-        del os.environ["MA_TPU_SV_PROFILE"]
-    phases = [ln for ln in err.getvalue().splitlines() if ln.startswith("# sv phases:")]
-    return jb, wall, phases[-1][len("# sv phases: "):]
+        profile.install(None)
+    phases = " ".join(f"{name[3:].replace(' ', '_')} {tr.times.get(name, 0.0):.1f}s"
+                      for name in ("sv dispatch", "sv soc download", "sv enumerate", "sv jumps"))
+    return jb, wall, phases
 
 
 def jump_columns_equal(a, b) -> bool:

@@ -291,6 +291,12 @@ def run_sv_calling(
     reads = []
     for path in in_files:
         reads.extend(read_reads(path))
+    tracer = None
+    if os.environ.get("MA_TPU_PROFILE"):
+        from ma_tpu_torch.utils import profile
+
+        tracer = profile.AnalyzeRuntimes()
+        profile.install(tracer, device)
     g = mgr.selected.get
     t0 = time.perf_counter()
     jumps = compute_sv_jumps(
@@ -340,6 +346,9 @@ def run_sv_calling(
         f"calls in {time.perf_counter() - t0:.1f}s -> {out}",
         file=sys.stderr,
     )
+    if tracer is not None:
+        tracer.analyze(out=sys.stderr)
+        profile.install(None)
     return 0
 
 
@@ -411,6 +420,7 @@ def run_alignment(
         )
     if aligner.profiler is not None:
         aligner.profiler.analyze(out=sys.stderr)
+        aligner.profiler = None
     return 0
 
 

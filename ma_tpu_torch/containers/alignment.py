@@ -24,6 +24,7 @@ import math
 from typing import List, Optional, Tuple
 
 from ma_tpu_torch.containers.pack import Pack
+from ma_tpu_torch.utils import profile
 
 # op codes (SEED is stored distinctly but rendered as '=' in CIGARs)
 SEED, MATCH, MISMATCH, INSERTION, DELETION = "s", "=", "X", "I", "D"
@@ -212,8 +213,10 @@ class Alignment:
                 q += size
 
         ov = 0
+        self_runs = list(runs(self))
         other_runs = list(runs(other))
-        for (a0, a1) in runs(self):
+        profile.count("mapq run pairs", len(self_runs) * len(other_runs))
+        for (a0, a1) in self_runs:
             for (b0, b1) in other_runs:
                 lo, hi = max(a0, b0, s), min(a1, b1, e)
                 if lo < hi:

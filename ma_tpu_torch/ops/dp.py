@@ -22,6 +22,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ma_tpu_torch.utils import profile
+
 NEG_INF = -(2**30)
 
 SRC_MASK = 0x07
@@ -160,15 +162,18 @@ def banded_align_traceback_packed(qa: np.ndarray, ta: np.ndarray, qlen, tlen, ba
     int32 (n_ops, rem_i, rem_j, score, max_i, max_j, zdropped) and the ops
     columns the longest traceback needs. Returns (ops [P, S] uint8, meta)."""
     as_dev = lambda a: torch.as_tensor(np.asarray(a), device=device)
+    profile.host_sync(5)  # the five uploads below
     ops, n_ops, rem_i, rem_j, score, max_i, max_j, zd = banded_align_traceback(
         as_dev(np.asarray(qa, np.uint8)), as_dev(np.asarray(ta, np.uint8)),
         as_dev(np.asarray(qlen, np.int32)), as_dev(np.asarray(tlen, np.int32)),
         as_dev(np.asarray(band, np.int32)), params, zdrop, is_global,
     )
     meta = torch.stack([n_ops, rem_i, rem_j, score, max_i, max_j, zd.to(torch.int32)])
+    profile.host_sync()
     meta = meta.to(torch.int32).cpu().numpy()
     # the ops columns the longest traceback needs, rounded up to 128
     smax = int(meta[0].max(initial=0))
+    profile.host_sync()
     return ops[:, : min(ops.shape[1], max(128, -(-smax // 128) * 128))].cpu().numpy(), meta
 
 
@@ -188,6 +193,7 @@ def _pack_runs_core(ops: torch.Tensor, n_ops: torch.Tensor):
     ch = valid & ((ops != prev) | (jj == 0))
     rid = torch.cumsum(ch.to(torch.int32), 1, dtype=torch.int32) - 1
     n_runs = torch.where(n_ops > 0, rid[:, -1] + 1, 0).to(torch.int32)
+    profile.host_sync()  # nonzero waits for its count
     pi, ji = torch.nonzero(ch & (rid < MAX_RUNS), as_tuple=True)
     ri = rid[pi, ji].long()
     run_start = torch.zeros((P, MAX_RUNS), dtype=torch.int32, device=dev)

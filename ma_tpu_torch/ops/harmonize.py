@@ -25,6 +25,7 @@ import torch
 from ma_tpu_torch.ops.harmonize_cuda import linesweep
 from ma_tpu_torch.ops.soc import SoCBatch
 from ma_tpu_torch.ops.sortops import sel_minor, sort_with_payloads
+from ma_tpu_torch.utils import profile
 
 POS = 1e30
 _HALF_PI_F32 = torch.tensor(math.pi / 2, dtype=torch.float32)
@@ -58,6 +59,7 @@ def _masked_median(vals: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 def _delta_distance(q0, r0, angle, rstart):
     """deltaDistance (harmonization.h:82-89). float32 in, float32 out; the
     trigonometry runs in float64."""
+    profile.host_sync()  # the constant's upload
     comp = (_HALF_PI_F32.to(angle.device) - angle).double()
     a = angle.double()
     y = r0.double() + q0.double() / torch.tan(comp)
@@ -92,6 +94,7 @@ def _fit_guide_line(q, l, r, valid, n_cand: int = 8):
     cvalid = j < torch.clamp(cnt, max=n_cand)[..., None]
 
     pairs = [(a, b) for a in range(n_cand) for b in range(a + 1, n_cand)]
+    profile.host_sync(2)  # the two uploads below
     pa = torch.tensor([p[0] for p in pairs], device=dev)
     pb = torch.tensor([p[1] for p in pairs], device=dev)
     x1, y1 = cx[..., pa], cy[..., pa]
@@ -339,6 +342,7 @@ def harmonization(
     fw_keep = fw_ok & (push_before < final_cnt[:, None])
     rv_keep = rv_ok & (push_before + fw_ok.to(torch.int32) < final_cnt[:, None])
     keep2 = torch.stack([fw_keep, rv_keep], 2)
+    profile.host_sync()  # on_forward's upload
     return HarmBatch(
         q_start=q2.reshape(B, K * 2, M),
         length=l2.reshape(B, K * 2, M),

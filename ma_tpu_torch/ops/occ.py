@@ -17,6 +17,7 @@ from typing import NamedTuple
 import torch
 
 from ma_tpu_torch.index.fmd_index import OCC_INTERVAL, SA_INTERVAL, FMDIndex
+from ma_tpu_torch.utils import profile
 
 _CRUMB_LO = 0x55555555
 _M32 = 0xFFFFFFFF
@@ -202,6 +203,8 @@ def sa_walk(k: torch.Tensor, lf, sampled) -> torch.Tensor:
             sc = sc + active.to(torch.int32)
         k[idx] = kc
         steps[idx] = sc
+        profile.count("sa walk steps", SA_CHECK_EVERY)
+        profile.host_sync()  # nonzero waits for its count
         live = torch.nonzero((kc & (SA_INTERVAL - 1)) != 0).flatten()
         if live.numel() == 0:
             break

@@ -31,6 +31,7 @@ from ma_tpu_torch.ops.occ import (
     init_interval,
     sai_where,
 )
+from ma_tpu_torch.utils import profile
 
 CHECK_EVERY = 16  # state-machine steps between two host checks for live reads
 
@@ -109,12 +110,28 @@ def _gather_q(seqs: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _run(step, st, done_phase: int, iter_cap: int):
-    """Step the state machine until no read is live or iter_cap steps ran."""
+    """Step the state machine until no read is live or iter_cap steps ran.
+    While tracing, each check counts the live reads instead of asking for
+    any (the same single sync) and the steps go to the counters `fmd steps`,
+    `fmd lane steps` (B x steps) and `fmd live lane steps` (the reads live at
+    a check x the steps to the next)."""
+    tracing = profile.tracing()
+    lanes = st.phase.shape[0]
     it = 0
-    while it < iter_cap and bool((st.phase != done_phase).any()):
-        for _ in range(min(CHECK_EVERY, iter_cap - it)):
+    while it < iter_cap:
+        profile.host_sync()
+        live = st.phase != done_phase
+        live = int(live.sum()) if tracing else bool(live.any())
+        if not live:
+            break
+        n = min(CHECK_EVERY, iter_cap - it)
+        for _ in range(n):
             st = step(st)
-        it += min(CHECK_EVERY, iter_cap - it)
+        it += n
+        if tracing:
+            profile.count("fmd steps", n)
+            profile.count("fmd lane steps", lanes * n)
+            profile.count("fmd live lane steps", live * n)
     return st
 
 

@@ -31,6 +31,7 @@ from ma_tpu_torch.index.fmd_index import FMDIndex
 from ma_tpu_torch.io.sam import SamWriter
 from ma_tpu_torch.pipeline import finish_native
 from ma_tpu_torch.pipeline.quality import mapping_quality
+from ma_tpu_torch.utils import profile
 from ma_tpu_torch.utils.profile import AnalyzeRuntimes, stage_timer
 from ma_tpu_torch.index.minimizer import MinimizerIndex, minimizer_seeding
 from ma_tpu_torch.ops.dp import _dp_desc_runs_fused
@@ -165,6 +166,7 @@ def _harm_pack_core(harm: HarmBatch, overflow: torch.Tensor, max_sets: int = 0):
     ql = (harm.q_start << 16) | harm.length
     sel = seed_ok.reshape(-1)
     data = torch.zeros((2, B * G * M), dtype=torch.int32, device=dev)
+    profile.host_sync(2)  # two boolean selections: each waits for its count
     picked = torch.stack([ql.reshape(-1)[sel], harm.ref_start.reshape(-1)[sel]])
     data[:, : picked.shape[1]] = picked
     n_seeds = seed_ok.sum(2, dtype=torch.int32)
@@ -202,22 +204,25 @@ def _stage_tail(cfg: DeviceStageConfig, seeds: SeedBatch, lens: torch.Tensor,
                 contig_starts: torch.Tensor, text_len: int):
     """SoC, harmonization and set packing of a SeedBatch. Returns (harm,
     soc, data, meta)."""
-    soc = soc_collect(
-        seeds, lens, contig_starts, match=cfg.match, extend=cfg.extend, gap=cfg.gap,
-        fixed_width=cfg.fixed_soc_width, rectangular=cfg.rectangular,
-        min_score=_soc_min_score(cfg, lens, text_len), max_socs=cfg.max_socs_collect,
-    )
-    harm = harmonization(
-        soc, lens, text_len=text_len, max_socs=cfg.max_socs_harm,
-        min_socs=cfg.min_socs, seeds_per_soc=cfg.seeds_per_soc,
-        do_heuristics=cfg.do_heuristics, switch_qlen=cfg.switch_qlen,
-        score_tolerance=cfg.score_tolerance, harm_score_min=cfg.harm_score_min,
-        harm_score_min_rel=cfg.harm_score_min_rel,
-        score_diff_tolerance=cfg.score_diff_tolerance, max_lookahead=cfg.max_lookahead,
-        max_delta_dist=cfg.max_delta_dist, min_delta_dist=cfg.min_delta_dist,
-        n_cand=cfg.n_cand,
-    )
-    data, meta = _harm_pack_core(harm, _batch_overflow(cfg, soc), cfg.max_out_sets)
+    with profile.span("soc"):
+        soc = soc_collect(
+            seeds, lens, contig_starts, match=cfg.match, extend=cfg.extend, gap=cfg.gap,
+            fixed_width=cfg.fixed_soc_width, rectangular=cfg.rectangular,
+            min_score=_soc_min_score(cfg, lens, text_len), max_socs=cfg.max_socs_collect,
+        )
+    with profile.span("harmonization"):
+        harm = harmonization(
+            soc, lens, text_len=text_len, max_socs=cfg.max_socs_harm,
+            min_socs=cfg.min_socs, seeds_per_soc=cfg.seeds_per_soc,
+            do_heuristics=cfg.do_heuristics, switch_qlen=cfg.switch_qlen,
+            score_tolerance=cfg.score_tolerance, harm_score_min=cfg.harm_score_min,
+            harm_score_min_rel=cfg.harm_score_min_rel,
+            score_diff_tolerance=cfg.score_diff_tolerance, max_lookahead=cfg.max_lookahead,
+            max_delta_dist=cfg.max_delta_dist, min_delta_dist=cfg.min_delta_dist,
+            n_cand=cfg.n_cand,
+        )
+    with profile.span("set packing"):
+        data, meta = _harm_pack_core(harm, _batch_overflow(cfg, soc), cfg.max_out_sets)
     return harm, soc, data, meta
 
 
@@ -225,11 +230,12 @@ def device_stage_mm(cfg: DeviceStageConfig, mmi, contig_starts: torch.Tensor,
                     ref_len_forward: int, seqs: torch.Tensor, lens: torch.Tensor):
     """Minimizer device stage: sketch + CHD lookup, seed filters, SoC,
     harmonization, set packing. Returns (harm, soc, data, meta)."""
-    seeds = minimizer_seeding(
-        mmi, seqs, lens, contig_starts, ref_len_forward, k=cfg.mm_k, w=cfg.mm_w,
-        max_occ=cfg.max_ambiguity, max_seeds=cfg.max_seeds, rectangular=cfg.rectangular,
-    )
-    seeds = min_length(seed_lump(seeds), cfg.min_seed_len)
+    with profile.span("seeding"):
+        seeds = minimizer_seeding(
+            mmi, seqs, lens, contig_starts, ref_len_forward, k=cfg.mm_k, w=cfg.mm_w,
+            max_occ=cfg.max_ambiguity, max_seeds=cfg.max_seeds, rectangular=cfg.rectangular,
+        )
+        seeds = min_length(seed_lump(seeds), cfg.min_seed_len)
     return _stage_tail(cfg, seeds, lens, contig_starts, 2 * ref_len_forward)
 
 
@@ -239,13 +245,15 @@ def device_stage(cfg: DeviceStageConfig, fmd: FMDDev, contig_starts: torch.Tenso
     lumping), SoC, harmonization, set packing. Returns (harm, soc, data,
     meta)."""
     seed_fn = smem_seeding if cfg.seeding_technique == "SMEMs" else max_spanning_seeding
-    segs = seed_fn(fmd, seqs, lens, max_segs=cfg.max_segs, min_ambiguity=cfg.min_ambiguity,
-                   max_ambiguity=cfg.max_ambiguity)
-    seeds = extract_seeds(
-        fmd, segs, lens, contig_starts, max_seeds=cfg.max_seeds,
-        max_ambiguity=cfg.max_ambiguity, min_seed_len=cfg.min_seed_len,
-        skip_ambiguous=cfg.skip_ambiguous, rectangular=cfg.rectangular,
-    )
+    with profile.span("seeding"):
+        segs = seed_fn(fmd, seqs, lens, max_segs=cfg.max_segs,
+                       min_ambiguity=cfg.min_ambiguity, max_ambiguity=cfg.max_ambiguity)
+    with profile.span("seed extraction"):
+        seeds = extract_seeds(
+            fmd, segs, lens, contig_starts, max_seeds=cfg.max_seeds,
+            max_ambiguity=cfg.max_ambiguity, min_seed_len=cfg.min_seed_len,
+            skip_ambiguous=cfg.skip_ambiguous, rectangular=cfg.rectangular,
+        )
     return _stage_tail(cfg, seeds, lens, contig_starts, fmd.n)
 
 
@@ -284,6 +292,7 @@ def mem_seed_batch(fmd: FMDIndex, seqs: np.ndarray, lens: np.ndarray,
         n_seeds[b] = len(tuples)
     t = lambda a, dt=torch.int32: torch.as_tensor(a, device=device).to(dt)  # noqa: E731
     z = torch.zeros((B, S), dtype=torch.int32, device=device)
+    profile.host_sync(8)  # the eight uploads below
     return SeedBatch(
         q_start=t(cols[0]), length=t(cols[1]), ref_start=t(cols[2]),
         on_forward=t(cols[3], torch.bool), ambiguity=t(cols[4]), delta=z, soc_nt=z,
@@ -317,7 +326,6 @@ class Aligner:
         self._index_prefix = index_prefix
         self.fmd_host = fmd
         self._fmd_dev = None
-        self.profiler: AnalyzeRuntimes | None = None
         codes = np.asarray(pack.codes, np.uint8)
         # folded genome codes (forward || reverse complement): the DP windows
         # are cut from text_dev on the device, the native finish reads text_host
@@ -334,6 +342,16 @@ class Aligner:
         self.n_inversions = 0
 
     TECHNIQUES = ("minimizers", "maxSpan", "SMEMs", "MEMs")
+
+    @property
+    def profiler(self) -> AnalyzeRuntimes | None:
+        """The process's tracer (utils/profile.py); setting it installs one
+        for every stage of the process, on this Aligner's device."""
+        return profile.current()
+
+    @profiler.setter
+    def profiler(self, tracer: AnalyzeRuntimes | None) -> None:
+        profile.install(tracer, self.device)
 
     def _check_supported(self) -> None:
         technique = str(self.pset.get("Seeding Technique"))
@@ -372,6 +390,7 @@ class Aligner:
         packed data, packed meta, seqs on the device)."""
         self._check_supported()
         cfg = DeviceStageConfig.from_params(self.pset, seqs.shape[1], cap_boost=self.cap_boost)
+        profile.host_sync(2)  # two uploads from pageable memory
         seqs_d = torch.as_tensor(seqs, device=self.device)
         lens_d = torch.as_tensor(np.asarray(lens, np.int32), device=self.device)
         ref_len = self.pack.unpacked_size_forward_strand
@@ -381,11 +400,13 @@ class Aligner:
             if thres > 0:
                 # SDUST: low-complexity spans become N for seeding only; the
                 # DP reads the real bases (seqs_d)
+                profile.host_sync()  # the upload from pageable memory
                 seed_d = torch.as_tensor(dust_masked(seqs, lens, thres), device=self.device)
             out = device_stage_mm(cfg, self.mmi_dev(cfg), self.contig_starts, ref_len,
                                   seed_d, lens_d)
         elif cfg.seeding_technique == "MEMs":
-            seeds = mem_seed_batch(self.fmd(), seqs, lens, cfg, self.device)
+            with profile.span("seeding"):
+                seeds = mem_seed_batch(self.fmd(), seqs, lens, cfg, self.device)
             out = device_stage_from_seeds(cfg, self.contig_starts, ref_len, seeds, lens_d)
         else:
             out = device_stage(cfg, self.fmd_dev(), self.contig_starts, seqs_d, lens_d)
@@ -427,6 +448,7 @@ class Aligner:
                        seqs_np, self.profiler)
         with stage_timer(self.profiler, "device stage wait"):
             # meta word: bit0 valid, bit1 overflow, bits2-9 soc_of, bits10+ n_seeds
+            profile.host_sync()
             mw = meta_d.cpu().numpy().reshape(seqs_np.shape[0], -1)
             hsv = (mw & 1).astype(bool)
             hsoc = ((mw >> 2) & 255).astype(np.int32)
@@ -434,6 +456,7 @@ class Aligner:
             nw.overflow_flags = ((mw[:, 0] >> 1) & 1).astype(bool)
             if not self._in_rescue:
                 self.n_overflow_reads += int(nw.overflow_flags.sum())
+            profile.host_sync()
             hqlr = data_d[:, : int(hn.sum())].cpu().numpy()
         # data row0 = q_start << 16 | length, row1 = ref_start
         hq, hl, hr = hqlr[0] >> 16, hqlr[0] & 0xFFFF, hqlr[1]
@@ -506,6 +529,7 @@ class Aligner:
                     is_glob = bool(isg[rows_all[0]])
                     for s in range(0, len(rows_all), self.MAX_P_FUSED):
                         rows = rows_all[s : s + self.MAX_P_FUSED]
+                        profile.host_sync()  # the upload from pageable memory
                         d8 = torch.as_tensor(
                             np.ascontiguousarray(desc[rows, :8].T), device=self.device
                         )
@@ -528,10 +552,12 @@ class Aligner:
         fwd_ops = []
         with stage_timer(self.profiler, "device banded DP + traceback"):
             for rows, is_glob, comb_d, runs_d in launched:
+                profile.host_sync()
                 comb = comb_d.cpu().numpy()
                 n_runs = comb[0]
                 over = comb[5]
                 smax = max(1, int(n_runs.max(initial=0)))
+                profile.host_sync()
                 runs_t = runs_d[:smax].cpu().numpy()
                 prob_nr[rows] = n_runs
                 prob_meta[rows, 0] = comb[2]
@@ -615,7 +641,8 @@ class Aligner:
         old = self.cap_boost
         self.cap_boost = max(4 * old, 4)
         try:
-            res2 = self.align_batch([reads[i] for i in idx], pad_to=32)
+            with stage_timer(self.profiler, "overflow rescue"):
+                res2 = self.align_batch([reads[i] for i in idx], pad_to=32)
             for k, i in enumerate(idx):
                 results[i] = res2[k]
             self.n_rescued_reads += len(idx)
@@ -693,6 +720,10 @@ class Aligner:
         n = 0
 
         def run(bucket: List[NucSeq]):
+            with profile.batch():
+                run_batch(bucket)
+
+        def run_batch(bucket: List[NucSeq]):
             nonlocal n
             with stage_timer(self.profiler, "host batch prep"):
                 seqs, lens = self._pad_batch(bucket, len(bucket))

@@ -32,6 +32,7 @@ from ma_tpu_torch.containers.alignment import (
 from ma_tpu_torch.containers.nucseq import NucSeq
 from ma_tpu_torch.containers.pack import Pack
 from ma_tpu_torch.ops.dp import DPParams, banded_align_traceback, rle_ops
+from ma_tpu_torch.utils import profile
 
 MAX_DIR_BYTES = 2**30  # direction bytes per device call
 
@@ -100,13 +101,16 @@ def _window_cigars(segs, band: int, params: DPParams, device) -> List[list]:
             q[k, : len(qs)] = qs
             t[k, : len(ts)] = ts
         as_dev = lambda a: torch.as_tensor(a, device=device)
+        profile.host_sync(5)  # the five uploads below
         qlen = np.asarray([len(x[0]) for x in segs[s:e]], np.int32)
         tlen = np.asarray([len(x[1]) for x in segs[s:e]], np.int32)
         ops, n_ops, rem_i, rem_j, *_ = banded_align_traceback(
             as_dev(q), as_dev(t), as_dev(qlen), as_dev(tlen),
             as_dev(np.full(P, band, np.int32)), params, -1, True)
+        profile.host_sync()
         meta = torch.stack([n_ops, rem_i, rem_j]).cpu().numpy()
         smax = int(meta[0].max(initial=0))
+        profile.host_sync()
         ops = ops[:, :smax].cpu().numpy()
         cigars += [rle_ops(ops[k], int(meta[0, k]), int(meta[1, k]), int(meta[2, k]))
                    for k in range(P)]

@@ -31,6 +31,7 @@ import torch
 
 from ma_tpu_torch.containers.alignment import DELETION, INSERTION, SEED, Alignment
 from ma_tpu_torch.containers.pack import Pack
+from ma_tpu_torch.utils import profile
 from ma_tpu_torch.utils.profile import stage_timer
 from ma_tpu_torch.ops.dp import (
     OP_I,
@@ -324,6 +325,7 @@ class NWAligner:
                         # on kernel C (banded_align_runs takes C' up to
                         # 4,096); no result depends on the width
                         width = -(-max(self._problems[i].t_len for i in part) // 128) * 128
+                    profile.host_sync()  # the upload from pageable memory
                     desc = torch.as_tensor(np.asarray(
                         [self._problems[i].desc() for i in part], np.int32).T.copy(),
                         device=self.device)
@@ -354,9 +356,11 @@ class NWAligner:
                              f"dp collect {'glob' if is_global else 'ext'} {M}x{N}"):
                 if use_fused:
                     comb_d, runs_d = out
+                    profile.host_sync()
                     meta = comb_d[:8].cpu().numpy()
                     n_runs = meta[0]
                     smax = max(1, int(n_runs.max(initial=0)))
+                    profile.host_sync()
                     runs_t = (runs_d[:smax].cpu().numpy() if smax > RUNS_HEAD
                               else comb_d[8 : 8 + smax].cpu().numpy())
                     cigars = packed_runs_to_cigars(runs_t, n_runs)
@@ -367,6 +371,7 @@ class NWAligner:
                     max_i, max_j = meta[2], meta[3]
                 else:
                     ops_d, meta_d, run_op_d, run_start_d, n_runs_d = out
+                    profile.host_sync(4)
                     meta = meta_d.cpu().numpy()
                     n_ops, rem_i, rem_j = meta[0], meta[1], meta[2]
                     cigars = runs_to_cigars(run_op_d.cpu().numpy(), run_start_d.cpu().numpy(),
@@ -374,6 +379,7 @@ class NWAligner:
                     for k, cg in enumerate(cigars):
                         if cg is None:  # more than MAX_RUNS runs: decode the ops row
                             n = int(n_ops[k])
+                            profile.host_sync()
                             row = ops_d[k, : min(max(128, -(-n // 128) * 128),
                                                  ops_d.shape[1])].cpu().numpy()
                             cigars[k] = rle_ops(row, n, int(rem_i[k]), int(rem_j[k]))
@@ -492,12 +498,16 @@ class NWAligner:
                               cfg.band_ext)
                 lens.append((qc, tc))
             tb = torch.full((len(active),), tb_last_flag, dtype=torch.int32, device=self.device)
+            profile.host_sync()  # desc's upload from pageable memory
             comb_d, runs_full_d = _dp_desc_runs_fused(
                 self.text_dev, self.seqs_dev, torch.as_tensor(desc, device=self.device),
                 M=CH, N=CN, params=cfg.params, zdrop=cfg.zdrop, is_global=False, tb_last=tb)
+            profile.host_sync()
             comb = comb_d.cpu().numpy().astype(np.int64)
             meta = comb[:8]
             smax = max(1, int(meta[0].max(initial=0)))
+            if smax > RUNS_HEAD:
+                profile.host_sync()
             runs = (runs_full_d[:smax].cpu().numpy().astype(np.int64) if smax > RUNS_HEAD
                     else comb[8 : 8 + smax])
             return meta, runs, lens
