@@ -48,7 +48,11 @@ Phases (any failure raises and exits non-zero before the last line):
      one pass under MA_TPU_DP_V2=1 (C' launches, C does not, SAM identical
      to the C pass); one pass of the Illumina preset (SMEMs, placement >=
      99%); the first 512 reads of both presets on device="cpu" must give
-     byte-identical SAM;
+     byte-identical SAM; the FM-walk kernel (csrc/fmd_seed.cu) on the
+     Default preset's first batch at 4,096 and at 256 reads, exact against
+     the eager loop on the same CUDA tensors, timed by CUDA events and by
+     graph replay beside the eager loop, with its bound (record
+     "fmd_seed"). `--only fmd` runs this phase alone;
   7. paired reads: 4,096 FR pairs of 2 x 150 bp over the same genome
      (insert 400 +- 30, 1% substitutions, default_rng(2718)) through
      PairedAligner(Aligner(device="cuda")) under the Illumina Paired preset
@@ -1211,7 +1215,54 @@ def fmd_stage_split(al, reads) -> str:
             f"{tr.counters.get('host syncs', 0)} host syncs")
 
 
-def fmd_phase(dev, pack, fmd, reads, starts) -> dict:
+def fmd_seed_case(al, reads, roof) -> dict:
+    """The FM-walk kernel on one batch of `reads` (the Default preset's
+    seeding arguments) against the eager loop on the same CUDA tensors
+    (exact), timed by CUDA events and by graph replay, the eager loop by
+    CUDA events. Bound: the bytes the batch needs (codes and lengths in,
+    segments out, the occ blocks its walks read, at most the whole index)
+    over HBM speed; the walk's dependent chain is the longest read's steps
+    (`fmd steps`), the time over it is a chain step's."""
+    import torch
+
+    from ma_tpu_torch.ops.seeding import max_spanning_seeding, max_spanning_seeding_plain
+    from ma_tpu_torch.pipeline.aligner import DeviceStageConfig
+    from ma_tpu_torch.utils import profile
+
+    seqs, lens = al._pad_batch(reads, len(reads))
+    cfg = DeviceStageConfig.from_params(al.pset, seqs.shape[1])
+    fdev = al.fmd_dev()
+    sd, ld = torch.as_tensor(seqs, device=al.device), torch.as_tensor(lens, device=al.device)
+    kw = dict(max_segs=cfg.max_segs, min_ambiguity=cfg.min_ambiguity,
+              max_ambiguity=cfg.max_ambiguity)
+    run = lambda: max_spanning_seeding(fdev, sd, ld, **kw)  # noqa: E731
+    plain = lambda: max_spanning_seeding_plain(fdev, sd, ld, **kw)  # noqa: E731
+    got, want = run(), plain()
+    err = max_abs_err(got, want)
+    tr = profile.AnalyzeRuntimes()
+    profile.install(tr, None)
+    try:
+        run()
+    finally:
+        profile.install(None)
+    c = tr.counters
+    longest, live = c["fmd steps"], c["fmd live lane steps"]
+    ms, replay, plain_ms = time_ms(run, 20), graph_ms(run), time_ms(plain, 1)
+    index_bytes = nbytes(fdev.occ_blocks)
+    walk_bytes = min(index_bytes, live * 2 * 48)  # two 48-byte block reads a step at most
+    need = nbytes(sd, ld, *got) + walk_bytes
+    bd = roof.bound(need, 0)
+    rec = dict(max_abs_err=err, B=len(reads), ms=replay, event_ms=ms, plain_ms=plain_ms,
+               **bd, share=bd["bound_ms"] / replay, longest_steps=longest,
+               lane_use=live / (len(reads) * longest), us_per_chain_step=replay * 1e3 / longest,
+               bytes=need, index_bytes=index_bytes)
+    print(f"fmd_seed B={len(reads)}: {json.dumps(rec)}", flush=True)
+    if err:
+        raise AssertionError(f"the FM-walk kernel differs from the eager loop ({err})")
+    return rec
+
+
+def fmd_phase(dev, pack, fmd, reads, starts, records=None, roof=None) -> dict:
     """The FMD seeding path on `dev`: the Default preset (maxSpan) counted
     over PASSES passes after a warm-up, one pass under the stage timer, one
     pass under MA_TPU_DP_V2=1 (C' instead of C, same SAM), one pass of the
@@ -1265,9 +1316,9 @@ def fmd_phase(dev, pack, fmd, reads, starts) -> dict:
           f"rescued {al.n_rescued_reads}", flush=True)
     print(f"fmd launches: {json.dumps(launches)}", flush=True)
     path = ("soc_sweep", "linesweep", "dp_fused")
-    if min(launches[k] for k in path) == 0 or launches["dp_fused_v2"]:
-        raise AssertionError(f"the FMD path did not run kernels A, B, C (and not C'): "
-                             f"{launches}")
+    if min(launches[k] for k in path + ("fmd_seed",)) == 0 or launches["dp_fused_v2"]:
+        raise AssertionError(f"the FMD path did not run the FM-walk kernel and kernels A, "
+                             f"B, C (and not C'): {launches}")
     if share < 0.99:
         raise AssertionError(f"fmd placement {share:.4%} < 99%")
 
@@ -1276,6 +1327,9 @@ def fmd_phase(dev, pack, fmd, reads, starts) -> dict:
     print(al.profiler.analyze())
     al.profiler = None
     print("fmd split:", fmd_stage_split(al, reads[:BATCH]), flush=True)
+    if roof is not None:
+        cases = [fmd_seed_case(al, reads[:b], roof) for b in (BATCH, 256)]
+        records["fmd_seed"] = dict(cases[0], b256=cases[1])
 
     # ---- one pass with C' as the fused DP
     os.environ["MA_TPU_DP_V2"] = "1"
@@ -1304,8 +1358,9 @@ def fmd_phase(dev, pack, fmd, reads, starts) -> dict:
     share = placement(sam_i, starts)
     print(f"fmd SMEMs (Illumina): {wall:.3f} s, {len(reads) / wall:.1f} reads/s, placed "
           f"{share:.4%}, launches {json.dumps(launches)}", flush=True)
-    if min(launches[k] for k in path) == 0:
-        raise AssertionError(f"the SMEM path did not run kernels A, B, C: {launches}")
+    if min(launches[k] for k in path) == 0 or launches["fmd_seed"]:
+        raise AssertionError(f"the SMEM path did not run kernels A, B, C (and not the "
+                             f"FM-walk kernel): {launches}")
     if share < 0.99:
         raise AssertionError(f"SMEM placement {share:.4%} < 99%")
     print("fmd split:", fmd_stage_split(al_i, reads[:BATCH]), flush=True)
@@ -2432,12 +2487,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also run one pass under torch.profiler")
-    ap.add_argument("--only", choices=("soc", "dp", "traceback", "paired", "cli", "msv", "gui",
-                                       "parallel"),
+    ap.add_argument("--only", choices=("soc", "dp", "traceback", "fmd", "paired", "cli", "msv",
+                                       "gui", "parallel"),
                     help="only one kernel's timed cases, printed as JSON: kernel A's two "
                          "(soc), kernels C and C' on the inputs of a full run (dp), the "
                          "traceback kernel on kernel D's two cases and the long pass's own "
-                         "launches (traceback); or only the paired phase (paired), the "
+                         "launches (traceback); or only the FMD phase with the FM-walk "
+                         "kernel's timed cases (fmd), the paired phase (paired), the "
                          "command-line phase (cli) or the SV caller's phase (msv), with each "
                          "kernel's launches as JSON, or only the web console's phase (gui) or "
                          "the multi-process phase (parallel); run "
@@ -2539,6 +2595,13 @@ def main() -> int:
                                         (sv_pack, sv_mmi, sv_reads))))
         return 0
 
+    if args.only == "fmd":
+        records = {}
+        pack, reads, starts = simulate(GENOME_BP, N_READS, READ_LEN)
+        launches = fmd_phase(dev, pack, build_fmd(pack), reads, starts, records, roof)
+        print(json.dumps({"launches": launches, "fmd_seed": records["fmd_seed"]}))
+        return 0
+
     if args.only in ("paired", "cli"):
         pack, _, _ = simulate(GENOME_BP, 1, READ_LEN)  # the bench genome
         if args.only == "paired":
@@ -2622,7 +2685,7 @@ def main() -> int:
 
     # ---- FMD seeding (Default and Illumina presets), counted
     fmd = build_fmd(pack)
-    for name, v in fmd_phase(dev, pack, fmd, reads, starts).items():
+    for name, v in fmd_phase(dev, pack, fmd, reads, starts, records, roof).items():
         total[name] += v
 
     # ---- paired reads (Illumina Paired and Default + -m), counted

@@ -28,7 +28,7 @@ PKG = Path(__file__).resolve().parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 SOURCES = ("errors.cu", "soc_sweep.cu", "linesweep.cu", "dp_fused.cu", "dp_fused_v2.cu",
-           "dp_wavefront.cu", "dp_traceback.cu")
+           "dp_wavefront.cu", "dp_traceback.cu", "fmd_seed.cu")
 HEADERS = ("common.cuh", "dp_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -197,4 +197,7 @@ DP_WAVEFRONT = Kernel("dp_wavefront", "ma_dp_wavefront", "ppppppp" + "i" * 12,
 DP_TRACEBACK = Kernel("dp_traceback", "ma_dp_traceback", "ppppiii",
                       "ma_tpu_torch/csrc/dp_traceback.cu",
                       "ma_tpu/ops/dp.py:209")
-KERNELS = (SOC_SWEEP, LINESWEEP, DP_FUSED, DP_FUSED_V2, DP_WAVEFRONT, DP_TRACEBACK)
+FMD_SEED = Kernel("fmd_seed", "ma_fmd_seed", "pppppppppppp" + "i" * 9,
+                  "ma_tpu_torch/csrc/fmd_seed.cu",
+                  "ma_tpu/ops/seeding.py:102 max_spanning_seeding")
+KERNELS = (SOC_SWEEP, LINESWEEP, DP_FUSED, DP_FUSED_V2, DP_WAVEFRONT, DP_TRACEBACK, FMD_SEED)

@@ -6,6 +6,10 @@ every 32 rows); `FMDDev.from_host` puts its arrays on a device. All
 functions are batched over any shape of `k` / `c` / interval tensors and
 return int32.
 
+`FMDDev.occ_blocks` holds the same index once more, packed for the FM-walk
+kernel (csrc/fmd_seed.cu): a 64-byte block per 128 BWT rows, so a lookup
+reads one line. `occ4_blocks` is its plain reader.
+
 torch has no uint32 and no popcount: the BWT words are held in int64 (values
 below 2^32), so `~` and `>>` never touch a sign bit that matters, and the
 occ count within a block is a SWAR popcount of the crumb-match bits.
@@ -14,6 +18,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ma_tpu_torch.index.fmd_index import OCC_INTERVAL, SA_INTERVAL, FMDIndex
@@ -32,6 +37,9 @@ class FMDDev(NamedTuple):
     primary: int
     ssa: torch.Tensor  # int32 [n // 32 + 1]
     n: int  # text length
+    # int32 [nb, 16]: the block's 4 occ checkpoints, its 8 BWT words (uint32
+    # bits), 4 of padding; read by the FM-walk kernel and occ4_blocks
+    occ_blocks: torch.Tensor
 
     @classmethod
     def from_host(cls, fmd: FMDIndex, device) -> "FMDDev":
@@ -46,7 +54,18 @@ class FMDDev(NamedTuple):
             primary=int(fmd.primary),
             ssa=as_dev(fmd.ssa, torch.int32),
             n=int(fmd.n),
+            occ_blocks=as_dev(pack_occ_blocks(fmd), torch.int32),
         )
+
+
+def pack_occ_blocks(fmd: FMDIndex) -> np.ndarray:
+    """int32 [nb, 16]: per 128-base block the occ checkpoints (A, C, G, T),
+    the eight BWT words (uint32 bits) and four padding ints, 64 bytes."""
+    nb = fmd.bwt_words.shape[0]
+    out = np.zeros((nb, 16), np.int32)
+    out[:, :4] = fmd.occ_cp
+    out[:, 4:12] = fmd.bwt_words.astype(np.uint32).view(np.int32)
+    return out
 
 
 def _match_bits(words: torch.Tensor, c) -> torch.Tensor:
@@ -86,6 +105,25 @@ def occ4(fmd: FMDDev, k: torch.Tensor) -> torch.Tensor:
     c4 = torch.arange(4, dtype=torch.int64, device=k.device)[:, None]
     z = _match_bits(words[..., None, :], c4) & _inclusive_masks(off)[..., None, :]
     out = fmd.occ_cp[b] + _popcount32(z).sum(-1).to(torch.int32)
+    return torch.where((k >= 0)[..., None], out, torch.zeros_like(out))
+
+
+def occ4_blocks(fmd: FMDDev, k: torch.Tensor) -> torch.Tensor:
+    """occ4 read from `fmd.occ_blocks` with the FM-walk kernel's arithmetic:
+    per word the crumbs' low and high bits under the row's mask, counted
+    once each and once together (n1 + n3, n2 + n3, n3); n0 is what is left
+    of the off + 1 crumbs."""
+    k = k.to(torch.int32)
+    b, off = _block(fmd, k)
+    blk = fmd.occ_blocks[b]  # [..., 16]
+    words = blk[..., 4:12].to(torch.int64) & _M32
+    mask = _inclusive_masks(off) & _CRUMB_LO
+    lo, hi = words & mask, (words >> 1) & mask
+    n_lo = _popcount32(lo).sum(-1)
+    n_hi = _popcount32(hi).sum(-1)
+    n3 = _popcount32(lo & hi).sum(-1)
+    n0 = off.to(torch.int64) + 1 - n_lo - n_hi + n3
+    out = blk[..., :4] + torch.stack([n0, n_lo - n3, n_hi - n3, n3], -1).to(torch.int32)
     return torch.where((k >= 0)[..., None], out, torch.zeros_like(out))
 
 

@@ -3,17 +3,26 @@ maximally-spanning seeding and SMEM seeding.
 
 Both are per-read state machines that ma_tpu runs as one `lax.while_loop`
 over the batch: each iteration advances every read by one step (one batched
-`extend_backward`). Here each iteration is one eager call of the seeder's
-batched `step`, and the loop is `_run`.
+`extend_backward`). Which path runs where:
+- `max_spanning_seeding` on CUDA tensors (the Default preset's seeding)
+  launches the FM-walk kernel (csrc/fmd_seed.cu): a thread per read runs
+  that read's state machine to P_DONE or to `iter_cap` in one launch, with
+  no host check in between;
+- on CPU tensors, and wherever `ext_ops` is given (the row-sharded index of
+  parallel/sharded_fmd.py, whose lookups are collectives), it runs the
+  eager step loop, `max_spanning_seeding_plain`: each iteration is one
+  eager call of the batched `step`, and the loop is `_run`;
+- `smem_seeding` always runs the eager step loop.
 
-Why `_run` checks for live reads only every CHECK_EVERY steps and still
-gives ma_tpu's output exactly: every read advances on its own (the step is
+Why `_run` checks for live reads only every CHECK_EVERY steps, and why the
+kernel's per-thread loop stops each read on its own, and both still give
+ma_tpu's output exactly: every read advances on its own (the step is
 lane-wise), and a read in P_DONE / S_DONE changes none of the outputs of a
 step (segment slots, counts, overflow flags) - in max_spanning_seeding such
 a lane may move its cursor and interval, which nothing reads once it is
-done. So the steps past the point where ma_tpu's loop would stop leave the
-output as it was; the loop never steps past `iter_cap`, where ma_tpu's
-stops too, and reads still live there are flagged as overflowed by both.
+done. So the steps past the point where a read is done leave the output as
+it was; neither loop steps past `iter_cap`, where ma_tpu's stops too, and
+reads still live there are flagged as overflowed by all three.
 
 Static shapes: `max_segs` segments and a `max_stack` interval stack per
 read (`max_pending` pending intervals for SMEMs); overflow is flagged.
@@ -24,6 +33,7 @@ from typing import NamedTuple
 
 import torch
 
+from ma_tpu_torch import kernels
 from ma_tpu_torch.ops.occ import (
     SAI,
     FMDDev,
@@ -187,7 +197,66 @@ def max_spanning_seeding(fmd: FMDDev, seqs: torch.Tensor, lens: torch.Tensor,
     """Maximally-spanning seeding of a batch: seqs [B, L] codes (pad 4),
     lens [B]. Empty reads give no segments. `ext_ops` replaces
     (init_interval, extend_backward): the row-sharded index's collective
-    lookups (parallel/sharded_fmd.py) run the state machine unchanged."""
+    lookups (parallel/sharded_fmd.py) run the state machine unchanged.
+    CUDA `seqs` without `ext_ops` launch the FM-walk kernel; everything
+    else runs the plain version."""
+    if iter_cap is None:
+        iter_cap = 8 * seqs.shape[1] + 64
+    if ext_ops is None and seqs.device.type == "cuda":
+        return _max_spanning_kernel(fmd, seqs, lens, max_segs, max_stack, min_ambiguity,
+                                    max_ambiguity, iter_cap)
+    return max_spanning_seeding_plain(fmd, seqs, lens, max_segs, max_stack, min_ambiguity,
+                                      max_ambiguity, iter_cap, ext_ops)
+
+
+def _max_spanning_kernel(fmd: FMDDev, seqs: torch.Tensor, lens: torch.Tensor, max_segs: int,
+                         max_stack: int, min_ambiguity: int, max_ambiguity: int,
+                         iter_cap: int) -> SegmentBatch:
+    """The FM-walk kernel on a batch; the plain version's contract. Every
+    element of the result is written by the kernel. While tracing, the
+    kernel also writes each read's step count, and one sync reads the
+    longest walk and the sum into the counters `fmd steps` (the longest),
+    `fmd lane steps` (B x the longest) and `fmd live lane steps` (the sum),
+    and `fmd kernel reads` counts the batch's reads."""
+    B, L = seqs.shape
+    if seqs.dtype != torch.uint8:  # the aligner's codes; others as the plain version reads them
+        seqs = seqs.to(torch.int32)
+    seqs, lens = seqs.contiguous(), lens.to(torch.int32).contiguous()
+    dev = seqs.device
+    kernels.check(seqs, "seqs", seqs.dtype, (B, L))
+    kernels.check(lens, "lens", torch.int32, (B,))
+    kernels.check(fmd.occ_blocks, "occ_blocks", torch.int32, (fmd.occ_blocks.shape[0], 16))
+    kernels.check(fmd.L2, "L2", torch.int32, (5,))
+    if fmd.occ_blocks.device != dev:
+        raise ValueError(f"max_spanning_seeding: index on {fmd.occ_blocks.device}, reads on {dev}")
+    if max_segs < 1 or kernels.query("ma_fmd_seed_smem_bytes", max_stack) < 0:
+        raise ValueError(f"max_spanning_seeding: max_segs={max_segs} or max_stack={max_stack} "
+                         f"out of the kernel's range")
+    plane = lambda: torch.empty((B, max_segs), dtype=torch.int32, device=dev)  # noqa: E731
+    segs = SegmentBatch(plane(), plane(), plane(), plane(), plane(),
+                        torch.empty(B, dtype=torch.int32, device=dev),
+                        torch.empty(B, dtype=torch.bool, device=dev))
+    steps = torch.empty(B, dtype=torch.int32, device=dev) if profile.tracing() and B else None
+    if B:
+        kernels.FMD_SEED.launch(fmd.occ_blocks, fmd.L2, seqs, lens, *segs,
+                                0 if steps is None else steps, B, L, seqs.element_size(),
+                                max_segs, max_stack, min_ambiguity, max_ambiguity, iter_cap,
+                                fmd.primary)
+    if steps is not None:
+        profile.host_sync()
+        longest, total = torch.stack([steps.max().long(), steps.sum()]).tolist()
+        profile.count("fmd kernel reads", B)
+        profile.count("fmd steps", longest)
+        profile.count("fmd lane steps", B * longest)
+        profile.count("fmd live lane steps", total)
+    return segs
+
+
+def max_spanning_seeding_plain(fmd: FMDDev, seqs: torch.Tensor, lens: torch.Tensor,
+                               max_segs: int = 64, max_stack: int = 16,
+                               min_ambiguity: int = 0, max_ambiguity: int = 100,
+                               iter_cap: int | None = None, ext_ops=None) -> SegmentBatch:
+    """max_spanning_seeding as the eager step loop on the tensors' device."""
     init_iv, extend = ext_ops or (init_interval, extend_backward)
     seqs = seqs.to(torch.int32)
     B, L = seqs.shape

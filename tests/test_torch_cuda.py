@@ -826,3 +826,153 @@ def test_parallel_gloo_ranks_share_the_card_on_sharded_fmd(cuda, tmp_path):
             assert np.array_equal(got[f"{tech}.{f}"], v.cpu().numpy()), (tech, f)
         counts = {r["results"]["seed-fmd"][0][tech]["collectives"] for r in res}
         assert len(counts) == 1
+
+
+@pytest.fixture(scope="module")
+def fmd_walk(cuda):
+    """The FM walk's main-path inputs: an E. coli-size genome (4,641,652
+    bp) with planted repeats (7 copies of a 5 kb block at 0.1% divergence,
+    40 copies of 10 families of 0.7-2.5 kb at 0.5%), its FMD index on the
+    card and on the CPU, and 4,096 reads of 150 bp (1% substitutions, half
+    reverse complemented, 1% random) padded to 256."""
+    from ma_tpu_torch.containers.nucseq import revcomp_codes
+    from ma_tpu_torch.containers.pack import Pack
+    from ma_tpu_torch.index.fmd_index import FMDIndex
+    from ma_tpu_torch.ops.occ import FMDDev
+
+    rng = np.random.default_rng(10)
+    g = rng.integers(0, 4, 4_641_652).astype(np.uint8)
+
+    def plant(src_len, copies, div):
+        src = g[(p := int(rng.integers(0, len(g) - src_len))): p + src_len].copy()
+        for _ in range(copies):
+            cp = src.copy()
+            hit = rng.random(src_len) < div
+            cp[hit] = (cp[hit] + rng.integers(1, 4, int(hit.sum()))) % 4
+            d = int(rng.integers(0, len(g) - src_len))
+            g[d : d + src_len] = cp
+
+    plant(5000, 7, 0.001)
+    for _ in range(10):
+        plant(int(rng.integers(700, 2500)), 4, 0.005)
+    pack = Pack.empty()
+    pack.append("g", g)
+    fmd = FMDIndex.build(pack)
+    B, L, n = 4096, 256, 150
+    seqs = np.full((B, L), 4, np.uint8)
+    for i in range(B):
+        p = int(rng.integers(0, len(g) - n))
+        codes = g[p : p + n].copy()
+        hit = rng.random(n) < 0.01
+        codes[hit] = (codes[hit] + rng.integers(1, 4, int(hit.sum()))) % 4
+        seqs[i, :n] = revcomp_codes(codes) if i % 2 else codes
+    seqs[:: 100, :n] = rng.integers(0, 4, (len(seqs[:: 100]), n))  # 1% random
+    lens = np.full(B, n, np.int32)
+    return FMDDev.from_host(fmd, cuda), FMDDev.from_host(fmd, "cpu"), seqs, lens
+
+
+def _fmd_walk_case(case, seqs, lens):
+    """(seqs, lens, keyword arguments) of one case of the FM-walk kernel
+    test; "edge" gives reads with N, empty, one-base and full-width reads
+    and int32 codes (the plain version clamps a negative code to A)."""
+    kw = dict(max_segs=64, max_stack=16, min_ambiguity=0, max_ambiguity=100)
+    seqs, lens = seqs.copy(), lens.copy()
+    if case == "edge":
+        seqs = seqs.astype(np.int32)
+        seqs[0, [7, 70, 140]] = 4
+        seqs[1, :150] = 4
+        seqs[2], lens[2] = 4, 0
+        seqs[3, 0], lens[3] = 2, 1
+        seqs[4, 0], lens[4] = 4, 1
+        seqs[5, 150:], lens[5] = seqs[6, :106], 256
+        seqs[7, 3], seqs[8, 5] = -1, 7
+    elif case == "max_segs":
+        kw["max_segs"] = 4
+    elif case == "max_stack":
+        kw["max_stack"] = 1
+    elif case == "iter_cap":  # about the median walk: some reads left live
+        kw["iter_cap"] = 300
+    elif case == "min_ambiguity":
+        kw.update(min_ambiguity=3, max_ambiguity=20)
+    return seqs, lens, kw
+
+
+@pytest.mark.parametrize("case", ["main", "edge", "max_segs", "max_stack", "iter_cap",
+                                  "min_ambiguity"])
+def test_fmd_seed_kernel(cuda, fmd_walk, case):
+    """The FM-walk kernel's SegmentBatch field for field against the eager
+    loop on the card (4,096 reads) and on the CPU (the first 512 reads;
+    reads are independent), in one launch."""
+    from ma_tpu_torch import kernels
+    from ma_tpu_torch.ops.seeding import max_spanning_seeding, max_spanning_seeding_plain
+
+    dev, cpu, seqs, lens = fmd_walk
+    seqs, lens, kw = _fmd_walk_case(case, seqs, lens)
+    sd, ld = torch.as_tensor(seqs, device=cuda), torch.as_tensor(lens, device=cuda)
+    before = kernels.FMD_SEED.launches
+    got = max_spanning_seeding(dev, sd, ld, **kw)
+    torch.cuda.synchronize()
+    assert kernels.FMD_SEED.launches == before + 1
+    want = max_spanning_seeding_plain(dev, sd, ld, **kw)
+    for name, a, b in zip(got._fields, got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    sub = slice(0, 512)
+    on_cpu = max_spanning_seeding(cpu, torch.as_tensor(seqs[sub]), torch.as_tensor(lens[sub]),
+                                  **kw)
+    for name, a, b in zip(got._fields, got, on_cpu):
+        assert torch.equal(a[sub].cpu(), b), name
+    over = int(got.overflow.sum())
+    if case in ("max_segs", "max_stack", "iter_cap"):
+        assert 0 < over < len(lens)
+    elif case in ("main", "edge"):
+        assert over == 0
+    if case == "edge":
+        n = got.n_segs.cpu().numpy()
+        assert n[1] == n[2] == n[4] == 0 and n[3] == 1
+
+
+def test_fmd_seed_kernel_refuses_what_it_cannot_take(cuda, fmd_walk):
+    """On the card the walk takes an index on the card and a stack that
+    fits a block's shared memory; anything else raises (no fallback to the
+    eager loop)."""
+    from ma_tpu_torch.ops.seeding import max_spanning_seeding
+
+    dev, cpu, seqs, lens = fmd_walk
+    sd = torch.as_tensor(seqs[:64], device=cuda)
+    ld = torch.as_tensor(lens[:64], device=cuda)
+    with pytest.raises(ValueError, match="occ_blocks"):
+        max_spanning_seeding(cpu, sd, ld)
+    with pytest.raises(ValueError, match="max_stack=4096"):
+        max_spanning_seeding(dev, sd, ld, max_stack=4096)
+
+
+def test_fmd_seed_kernel_counters(cuda, fmd_walk, monkeypatch):
+    """While tracing, the kernel's counters are exact step counts: the
+    eager loop checking after every step (CHECK_EVERY = 1) counts the same
+    longest walk and live lane steps; one host sync per batch, and `fmd
+    kernel reads` counts the batch. Untraced, no sync and no counter."""
+    from ma_tpu_torch.ops import seeding
+    from ma_tpu_torch.utils import profile
+
+    dev, _, seqs, lens = fmd_walk
+    sd = torch.as_tensor(seqs[:1024], device=cuda)
+    ld = torch.as_tensor(lens[:1024], device=cuda)
+    counts = []
+    for fn in (seeding.max_spanning_seeding, seeding.max_spanning_seeding_plain):
+        tr = profile.AnalyzeRuntimes()
+        profile.install(tr, None)
+        monkeypatch.setattr(seeding, "CHECK_EVERY", 1)
+        try:
+            fn(dev, sd, ld)
+        finally:
+            profile.install(None)
+        counts.append(tr.counters)
+    kern, plain = counts
+    assert kern["fmd kernel reads"] == 1024 and "fmd kernel reads" not in plain
+    for name in ("fmd steps", "fmd lane steps", "fmd live lane steps"):
+        assert kern[name] == plain[name], name
+    assert kern["fmd lane steps"] == 1024 * kern["fmd steps"]
+    assert 0 < kern["fmd live lane steps"] < kern["fmd lane steps"]
+    assert kern["host syncs"] == 1
+    seeding.max_spanning_seeding(dev, sd, ld)  # untraced: nothing to count
+    assert profile.current() is None

@@ -243,3 +243,35 @@ def test_overflow(technique, cap):
                 **kw)
     same_fields(want, got)
     assert 0 < int(got.overflow.sum()) < len(lens)
+
+
+@pytest.mark.parametrize("genome", ["60k", "repeat"])
+@pytest.mark.parametrize("ext_ops", [False, True])
+def test_max_spanning_on_cpu_and_with_ext_ops_takes_the_eager_loop(monkeypatch, genome,
+                                                                   ext_ops):
+    """CPU tensors, and `ext_ops` given, run the eager step loop (the
+    kernel's wrapper is never called) and give ma_tpu's segments as before;
+    the tracer sees the loop's checks, not the kernel's counter."""
+    from ma_tpu_torch.utils import profile
+
+    def no_kernel(*a, **k):
+        raise AssertionError("the FM-walk kernel was called")
+
+    monkeypatch.setattr(TS, "_max_spanning_kernel", no_kernel)
+    pack, fmd, _, seqs, lens = genome_fixture(genome)
+    _, tcfg = configs("maxSpan")
+    kw = seed_kw(tcfg)
+    if ext_ops:
+        kw["ext_ops"] = (TO.init_interval, TO.extend_backward)
+    tr = profile.AnalyzeRuntimes()
+    profile.install(tr, None)
+    try:
+        got = TS.max_spanning_seeding(TO.FMDDev.from_host(fmd, "cpu"), torch.as_tensor(seqs),
+                                      torch.as_tensor(lens), **kw)
+    finally:
+        profile.install(None)
+    same_fields(run(genome, "maxSpan")["jsegs"], got)
+    c = tr.counters
+    assert "fmd kernel reads" not in c
+    assert c["fmd steps"] > 0 and c["fmd steps"] % TS.CHECK_EVERY == 0
+    assert c["host syncs"] == c["fmd steps"] // TS.CHECK_EVERY + 1

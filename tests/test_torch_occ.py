@@ -156,3 +156,18 @@ def test_sa_walks_outlast_the_sample_interval(index):
             k, s = fmd.inv_psi(k), s + 1
         steps.append(s)
     assert max(steps) >= 32
+
+
+def test_occ4_blocks_every_row_class(index):
+    """The packed 64-byte blocks the FM-walk kernel reads give occ4 at every
+    row, so at k = -1, the rows around `primary`, each block's edges (47
+    blocks) and the last row n."""
+    fmd, _, tdev, _ = index
+    assert tdev.occ_blocks.shape == (fmd.bwt_words.shape[0], 16)
+    assert tdev.occ_blocks.element_size() * 16 == 64
+    kt = torch.as_tensor(_rows(fmd))  # every row: -1 to n, so every class
+    assert torch.equal(T.occ4_blocks(tdev, kt), T.occ4(tdev, kt))
+    # the padding ints stay zero and the words keep their top bits
+    assert int(tdev.occ_blocks[:, 12:].abs().sum()) == 0
+    words = tdev.occ_blocks[:, 4:12].to(torch.int64) & 0xFFFFFFFF
+    assert torch.equal(words, tdev.bwt_words)
