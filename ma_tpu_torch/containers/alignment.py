@@ -51,6 +51,21 @@ class AlnStats:
     other: Optional["Alignment"] = None
 
 
+def _query_runs(a: "Alignment") -> List[Tuple[int, int]]:
+    """Query intervals [q0, q1) of `a`'s runs that consume query and
+    reference, in query order: a deletion takes no query, an insertion
+    advances it without a run."""
+    runs = []
+    q = a.begin_on_query
+    for op, size in a.data:
+        if op == DELETION:
+            continue
+        if op != INSERTION:
+            runs.append((q, q + size))
+        q += size
+    return runs
+
+
 class Alignment:
     def __init__(
         self,
@@ -197,30 +212,34 @@ class Alignment:
     def overlap(self, other: "Alignment") -> float:
         """Query-interval overlap fraction counting only ref-consuming ops
         (alignment.h overlap:659-740, simplified to query intervals of
-        M/X/= runs)."""
+        M/X/= runs), summed by one merge of the two run lists."""
         s = max(self.begin_on_query, other.begin_on_query)
         e = min(self.end_on_query, other.end_on_query)
         if s >= e:
             return 0.0
 
-        def runs(a):
-            q = a.begin_on_query
-            for op, size in a.data:
-                if op == DELETION:
-                    continue
-                if op != INSERTION:
-                    yield (q, q + size)
-                q += size
-
+        self_runs = _query_runs(self)
+        other_runs = _query_runs(other)
+        na, nb = len(self_runs), len(other_runs)
+        profile.count("mapq run pairs", na * nb)
+        profile.count("mapq runs swept", na + nb)
+        # Each list is sorted and disjoint on the query (q only grows), so a
+        # run can meet no run of the other list past the one that ends
+        # first: advancing that one meets every intersecting pair once.
         ov = 0
-        self_runs = list(runs(self))
-        other_runs = list(runs(other))
-        profile.count("mapq run pairs", len(self_runs) * len(other_runs))
-        for (a0, a1) in self_runs:
-            for (b0, b1) in other_runs:
-                lo, hi = max(a0, b0, s), min(a1, b1, e)
-                if lo < hi:
-                    ov += hi - lo
+        i = j = 0
+        while i < na and j < nb:
+            a0, a1 = self_runs[i]
+            b0, b1 = other_runs[j]
+            if a0 >= e or b0 >= e:
+                break
+            lo, hi = max(a0, b0, s), min(a1, b1, e)
+            if lo < hi:
+                ov += hi - lo
+            if a1 < b1:
+                i += 1
+            else:
+                j += 1
         denom = max(self.end_on_query, other.end_on_query) - min(
             self.begin_on_query, other.begin_on_query
         )

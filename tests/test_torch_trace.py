@@ -238,6 +238,38 @@ def test_mapq_run_pairs_equal_a_brute_force_count(monkeypatch):
     assert tr.counters["mapq run pairs"] == pairs["n"]
 
 
+def test_mapq_runs_swept_equal_a_brute_force_count(monkeypatch):
+    """The merge reads each run of both lists once a call whose windows
+    meet: `mapq runs swept` is the sum of Ra + Rb over those calls, and
+    `mapq run pairs` (Ra x Rb) is counted over the same calls."""
+    from ma_tpu_torch.containers.alignment import DELETION, INSERTION, Alignment
+
+    al, reads = _aligner("minimizers")
+    runs = {"swept": 0, "pairs": 0}
+    overlap = Alignment.overlap
+
+    def brute(self, other):
+        if max(self.begin_on_query, other.begin_on_query) < min(self.end_on_query,
+                                                                  other.end_on_query):
+            ra, rb = (sum(op not in (DELETION, INSERTION) for op, _ in a.data)
+                      for a in (self, other))
+            runs["swept"] += ra + rb
+            runs["pairs"] += ra * rb
+        return overlap(self, other)
+
+    monkeypatch.setattr(Alignment, "overlap", brute)
+    tr = profile.AnalyzeRuntimes()
+    al.profiler = tr
+    try:
+        al.pset.set("Emulate NGMLR's tag output", True)
+        al.align_to_sam(iter(reads), io.StringIO(), batch_size=8, cmd="ma_tpu")
+    finally:
+        al.profiler = None
+    assert runs["swept"] > 0
+    assert tr.counters["mapq runs swept"] == runs["swept"]
+    assert tr.counters["mapq run pairs"] == runs["pairs"]
+
+
 def test_helpers_are_no_ops_without_a_tracer():
     assert profile.current() is None
     with profile.span("x"), profile.batch(), profile.stage_timer(None, "y"):
