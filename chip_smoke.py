@@ -17,8 +17,8 @@ Phases (any failure raises and exits non-zero before the last line):
      B sorts and sweeps unsorted dense
      rows at R = 65,536, M = 64 and R = 512, M = 2048, and the short-read
      path's own first sweep of a batch, its plain version being the
-     stable sort plus the plain sweep; C' (the DP kernel MA_TPU_DP_V2=1
-     selects) also against C at the five fused buckets, both modes, P =
+     stable sort plus the plain sweep; C' (the DP kernel for widths past
+     C's 1,024 columns) also against C at the five fused buckets, both modes, P =
      4096, and against the plain version alone at (256, 4096) extension,
      which C cannot take, with its bound; each kernel's times before its
      redesign are printed beside the times now;
@@ -45,8 +45,7 @@ Phases (any failure raises and exits non-zero before the last line):
   6. FMD seeding: the same workload through Aligner(device="cuda") with the
      Default preset (maxSpan): reads/s (median of 3 passes after a warm-up),
      placement (>= 99%), the launches of A, B, C and the host-clock stages;
-     one pass under MA_TPU_DP_V2=1 (C' launches, C does not, SAM identical
-     to the C pass); one pass of the Illumina preset (SMEMs, placement >=
+     one pass of the Illumina preset (SMEMs, placement >=
      99%); the first 512 reads of both presets on device="cpu" must give
      byte-identical SAM; the FM-walk kernel (csrc/fmd_seed.cu) on the
      Default preset's first batch at 4,096 and at 256 reads, exact against
@@ -99,7 +98,7 @@ Phases (any failure raises and exits non-zero before the last line):
  11. wide fused problems: 40 reads of 500 bp ending in 256-base extensions,
      Bandwidth for Extensions 768 and Padding 1,100, so the Python NW path's
      fused bucket runs 1,152 columns wide, then 4,000 and 4,400, so it runs
-     4,352 wide: with MA_TPU_DP_V2 unset, C' must launch past 1,024 (then
+     4,352 wide: C' must launch past 1,024 (then
      4,096) columns (its per (M, N, mode) tally), and the SAM must equal the
      CPU port's;
  12. the SV caller (msv): scripts/sv_bench.py 50 50000 1000's workload,
@@ -1038,19 +1037,15 @@ def wide_phase(dev) -> None:
     """Fused problems wider than kernel C's 1,024 columns on the card:
     minimizers with each WIDE_CASES setting of Bandwidth for Extensions and
     Padding, so a 256-base extension spans 1,025 (4,257) reference columns
-    and the Python NW path's fused bucket runs 1,152 (4,352) wide. With
-    MA_TPU_DP_V2 unset, C' must launch past the case's width, C never past
-    1,024, and the SAM must equal the CPU port's."""
-    import os
-
+    and the Python NW path's fused bucket runs 1,152 (4,352) wide. C' must
+    launch past the case's width, C never past 1,024, and the SAM must equal
+    the CPU port's."""
     import torch
 
     from ma_tpu_torch import kernels
     from ma_tpu_torch.config.parameters import ParameterSetManager
     from ma_tpu_torch.pipeline.aligner import Aligner
 
-    if os.environ.get("MA_TPU_DP_V2"):
-        raise AssertionError("the wide phase runs with MA_TPU_DP_V2 unset")
     pack, reads = wide_workload()
 
     for band, padding, past in WIDE_CASES:
@@ -1265,12 +1260,9 @@ def fmd_seed_case(al, reads, roof) -> dict:
 def fmd_phase(dev, pack, fmd, reads, starts, records=None, roof=None) -> dict:
     """The FMD seeding path on `dev`: the Default preset (maxSpan) counted
     over PASSES passes after a warm-up, one pass under the stage timer, one
-    pass under MA_TPU_DP_V2=1 (C' instead of C, same SAM), one pass of the
-    Illumina preset (SMEMs), and the first CHECK_READS reads of both presets
-    against the CPU port. Returns each kernel's launches in the counted
-    passes and the two single passes."""
-    import os
-
+    pass of the Illumina preset (SMEMs), and the first CHECK_READS reads of
+    both presets against the CPU port. Returns each kernel's launches in the
+    counted passes and the Illumina pass."""
     import torch
 
     from ma_tpu_torch.config.parameters import ParameterSetManager
@@ -1330,23 +1322,6 @@ def fmd_phase(dev, pack, fmd, reads, starts, records=None, roof=None) -> dict:
     if roof is not None:
         cases = [fmd_seed_case(al, reads[:b], roof) for b in (BATCH, 256)]
         records["fmd_seed"] = dict(cases[0], b256=cases[1])
-
-    # ---- one pass with C' as the fused DP
-    os.environ["MA_TPU_DP_V2"] = "1"
-    try:
-        reset_launches()
-        sam2, wall = run(al, reads)
-        launches = read_launches(kernels.KERNELS)
-    finally:
-        del os.environ["MA_TPU_DP_V2"]
-    count(launches)
-    print(f"fmd maxSpan, MA_TPU_DP_V2=1: {wall:.3f} s, {len(reads) / wall:.1f} reads/s, "
-          f"launches {json.dumps(launches)}, SAM identical to the C pass: {sam2 == sam}",
-          flush=True)
-    if not launches["dp_fused_v2"] or launches["dp_fused"]:
-        raise AssertionError(f"MA_TPU_DP_V2=1 did not take C' instead of C: {launches}")
-    if sam2 != sam:
-        raise AssertionError(f"SAM under C' differs from C's at line {first_diff(sam2, sam)}")
 
     # ---- SMEMs: the Illumina preset
     al_i = aligner("Illumina", dev)

@@ -102,21 +102,6 @@ def _dp_desc_runs_fused(text, seqs, desc, M: int, N: int, params: DPParams,
     return torch.cat([meta, runs_t[:RUNS_HEAD]], 0), runs_t
 
 
-def packed_runs_to_cigars(runs_t: np.ndarray, n_runs: np.ndarray):
-    """Decode packed runs ([R', P] back-to-front, op + 4*len) into
-    forward-order cigars; rows with more runs than R' give None."""
-    Rp = runs_t.shape[0]
-    out = []
-    for p in range(len(n_runs)):
-        nr = int(n_runs[p])
-        if nr > Rp:
-            out.append(None)
-            continue
-        out.append([(int(runs_t[k, p]) & 3, int(runs_t[k, p]) >> 2)
-                    for k in range(nr - 1, -1, -1)])
-    return out
-
-
 # ------------------------------------------------ direction-tensor DP (kernel D)
 def banded_align(q, t, qlen, tlen, band, params: DPParams = DPParams(), zdrop: int = -1,
                  is_global: bool = True) -> DPResult:

@@ -17,17 +17,13 @@ The plain version is `dp_rows.banded_align_rows` + `traceback_device_rows`
 the card (the Pallas kernel leaves the first lane of its first tile there).
 
 C and C' share this contract, so they share the plain version. On the
-card `banded_align_runs` picks the kernel by width (`fused_kernel`): C
-where it takes N (up to 1,024 columns, as its scratch-size query says),
+card `banded_align_runs` picks the kernel by width alone (`fused_kernel`):
+C where it takes N (up to 1,024 columns, as its scratch-size query says),
 C' for every wider N, in both modes (past 1,024 columns C' walks each row
-in chunks of 1,024 from its band's left edge). As in ma_tpu, MA_TPU_DP_V2=1 (read at each call)
-also sends the widths C takes to C', whose row fits in at most 8 static
-tiles (`use_v2`); ma_tpu's further term PB2 >= 32 sizes TPU VMEM and holds
-for every shape (`_pick_pb_v2` never goes below 32), so it is left out.
+in chunks of 1,024 from its band's left edge). `banded_align_runs_v2`
+launches C' at any width.
 """
 from __future__ import annotations
-
-import os
 
 import torch
 
@@ -126,14 +122,6 @@ def _pick_tj_v2(N: int) -> int:
     return N
 
 
-def use_v2(N: int) -> bool:
-    """Whether banded_align_runs takes C' for width N: MA_TPU_DP_V2=1 and a
-    row of at most 8 static tiles (which `_pick_tj_v2` gives every N >= 1,
-    as in ma_tpu)."""
-    tj = _pick_tj_v2(N)
-    return os.environ.get("MA_TPU_DP_V2", "0") == "1" and N % tj == 0 and N // tj <= 8
-
-
 def _operands(q, t, qlen, tlen, band, tb_last, M: int, N: int, R: int):
     """Checked kernel operands and outputs: q [P, M], t [P, N], meta_in
     [P, 4] (qlen, tlen, band, tb_last) int32; runs [P, R], meta [8, P]."""
@@ -160,9 +148,8 @@ def _scores(params: DPParams):
 def fused_kernel(N: int, c_fits: bool) -> str:
     """The kernel banded_align_runs launches for CUDA tensors of width N:
     "C" where kernel C takes the width (`c_fits`, from its scratch-size
-    query) and MA_TPU_DP_V2 does not ask for C' (`use_v2`); "C'" for every
-    other N, global or extension."""
-    return "C'" if use_v2(N) or not c_fits else "C"
+    query for N), "C'" for every other N, global or extension."""
+    return "C" if c_fits else "C'"
 
 
 def banded_align_runs_v2(q, t, qlen, tlen, band, *, M: int, N: int,

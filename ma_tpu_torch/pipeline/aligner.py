@@ -18,7 +18,7 @@ where ma_tpu does. Paired reads go through pipeline/paired.py over
 from __future__ import annotations
 
 import dataclasses
-from typing import IO, Iterable, List, Sequence
+from typing import IO, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -32,9 +32,8 @@ from ma_tpu_torch.io.sam import SamWriter
 from ma_tpu_torch.pipeline import finish_native
 from ma_tpu_torch.pipeline.quality import mapping_quality
 from ma_tpu_torch.utils import profile
-from ma_tpu_torch.utils.profile import AnalyzeRuntimes, stage_timer
+from ma_tpu_torch.utils.profile import AnalyzeRuntimes
 from ma_tpu_torch.index.minimizer import MinimizerIndex, minimizer_seeding
-from ma_tpu_torch.ops.dp import _dp_desc_runs_fused
 from ma_tpu_torch.ops.extract import INT_MAX, SeedBatch, compute_delta, extract_seeds
 from ma_tpu_torch.ops.filters import min_length, seed_lump
 from ma_tpu_torch.ops.harmonize import HarmBatch, harmonization
@@ -43,7 +42,7 @@ from ma_tpu_torch.ops.sdust import dust_mask_array
 from ma_tpu_torch.ops.seeding import max_spanning_seeding, smem_seeding
 from ma_tpu_torch.ops.soc import SoCBatch, soc_collect
 from ma_tpu_torch.pipeline.inversions import small_inversions
-from ma_tpu_torch.pipeline.nw import DPProblem, NWAligner, NWConfig
+from ma_tpu_torch.pipeline.nw import Dispatched, NWAligner, NWConfig, collect, dispatch
 
 
 def _next_pow2(n: int, lo: int = 32) -> int:
@@ -300,14 +299,32 @@ def mem_seed_batch(fmd: FMDIndex, seqs: np.ndarray, lens: np.ndarray,
     )
 
 
+@dataclasses.dataclass
+class PlannedBatch:
+    """A read batch between plan_batch and collect_batch, its DP launched.
+    The native path keeps the C++ plan (its tokens, each seed set's
+    begin_ref `sbr`, read and strip) and its DP in flight (`dp`); the
+    Python path keeps its NWAligner (`nw`: the problems and their DP) and
+    its seed sets' plans."""
+
+    reads: Sequence[NucSeq]
+    seqs_np: np.ndarray
+    overflow: np.ndarray  # per read: a fixed-shape capacity truncated work
+    dp: Optional[Dispatched] = None
+    toks: Optional[np.ndarray] = None
+    sbr: Optional[np.ndarray] = None
+    set_read: Optional[np.ndarray] = None
+    set_soc: Optional[np.ndarray] = None
+    nw: Optional[NWAligner] = None
+    plans: Optional[list] = None
+
+
 class Aligner:
     """Single-end aligner over a Pack, on an explicit device. `fmd` is the
     host FMD index of the pack for the FMD techniques (maxSpan, SMEMs,
     MEMs); it is built on first use when not given. `index_prefix` names
     the stored index (`<prefix>.mmi.npz`): its minimizer index is used when
     its k and w match the parameters, else one is built."""
-
-    MAX_P_FUSED = 4096  # DP problems per fused-kernel launch
 
     def __init__(self, pack: Pack, params: ParameterSetManager | ParameterSet | None = None,
                  *, device, fmd: FMDIndex | None = None, index_prefix: str | None = None):
@@ -435,45 +452,45 @@ class Aligner:
                 pad_to *= 2
             B = pad_to
         seqs, lens = self._pad_batch(reads, B)
-        with stage_timer(self.profiler, "device seed+soc+harmonize"):
+        with profile.span("device seed+soc+harmonize"):
             _harm, _soc, data, meta, seqs_d = self.run_device_stage(seqs, lens)
         return self.collect_batch(self.plan_batch(reads, data, meta, seqs_d, seqs))
 
-    def plan_batch(self, reads: Sequence[NucSeq], data_d, meta_d, seqs_dev, seqs_np):
+    def plan_batch(self, reads: Sequence[NucSeq], data_d, meta_d, seqs_dev,
+                   seqs_np) -> PlannedBatch:
         """Download the packed sets, plan the DP problems and launch the DP:
         the native C++ plan when every problem fits the fused buckets, the
-        Python planner otherwise. Returns ("native" | "python", state) for
-        collect_batch."""
-        nw = NWAligner(self.pack, self.nw_cfg, self.text_dev, seqs_dev, self.text_host,
-                       seqs_np, self.profiler)
-        with stage_timer(self.profiler, "device stage wait"):
+        Python planner otherwise."""
+        with profile.span("device stage wait"):
             # meta word: bit0 valid, bit1 overflow, bits2-9 soc_of, bits10+ n_seeds
             profile.host_sync()
             mw = meta_d.cpu().numpy().reshape(seqs_np.shape[0], -1)
             hsv = (mw & 1).astype(bool)
             hsoc = ((mw >> 2) & 255).astype(np.int32)
             hn = (mw >> 10).astype(np.int32)
-            nw.overflow_flags = ((mw[:, 0] >> 1) & 1).astype(bool)
+            overflow = ((mw[:, 0] >> 1) & 1).astype(bool)
             if not self._in_rescue:
-                self.n_overflow_reads += int(nw.overflow_flags.sum())
+                self.n_overflow_reads += int(overflow.sum())
             profile.host_sync()
             hqlr = data_d[:, : int(hn.sum())].cpu().numpy()
         # data row0 = q_start << 16 | length, row1 = ref_start
         hq, hl, hr = hqlr[0] >> 16, hqlr[0] & 0xFFFF, hqlr[1]
-        state = self._plan_native(reads, nw, seqs_np, hq, hl, hr, hn, hsoc)
-        if state is not None:
-            return ("native", state)
-        return ("python", self._plan_python(reads, nw, hq, hl, hr, hn, hsv, hsoc))
+        pb = PlannedBatch(reads, seqs_np, overflow)
+        if not self._plan_native(pb, seqs_dev, hq, hl, hr, hn, hsoc):
+            self._plan_python(pb, seqs_dev, hq, hl, hr, hn, hsv, hsoc)
+        return pb
 
-    def _plan_python(self, reads, nw, hq, hl, hr, hn, hsv, hsoc):
-        """Python planning of every valid seed set, then the bucketed DP
-        launches (pipeline/nw.py). Returns (reads, nw, plans)."""
+    def _plan_python(self, pb: PlannedBatch, seqs_dev, hq, hl, hr, hn, hsv, hsoc) -> None:
+        """Python planning of every valid seed set, then the DP launches
+        (pipeline/nw.py)."""
+        nw = NWAligner(self.pack, self.nw_cfg, self.text_dev, seqs_dev, self.text_host,
+                       pb.seqs_np)
         G = hn.shape[1]
         offs = np.concatenate(([0], np.cumsum(hn.reshape(-1))))
         plans = []
-        with stage_timer(self.profiler, "host DP planning"):
-            for b in range(len(reads)):
-                codes = reads[b].codes
+        with profile.span("host DP planning"):
+            for b in range(len(pb.reads)):
+                codes = pb.reads[b].codes
                 for gset in np.nonzero(hsv[b])[0]:
                     s, e = offs[b * G + gset], offs[b * G + gset + 1]
                     if s == e:
@@ -483,139 +500,65 @@ class Aligner:
                     if out is not None:
                         plans.append((b, int(hsoc[b, gset]), out))
         nw.dispatch_batches()
-        return reads, nw, plans
+        pb.nw, pb.plans = nw, plans
 
-    def _plan_native(self, reads, nw, seqs_np, hq, hl, hr, hn, hsoc):
-        """C++ planning + bucketed fused-DP launches. Returns the pending
-        state, or None where ma_tpu takes its Python path: the planner's
-        output overflowed, or a problem exceeds the fused buckets (query >
-        256 or reference > 768)."""
+    def _plan_native(self, pb: PlannedBatch, seqs_dev, hq, hl, hr, hn, hsoc) -> bool:
+        """C++ planning, then the DP launches (pipeline/nw.py `dispatch`).
+        False where ma_tpu takes its Python path: the planner's output
+        overflowed, or a problem exceeds the fused buckets (query > 256 or
+        reference > 768)."""
         B, G = hn.shape
         flat_n = hn.reshape(-1)
         sel = np.flatnonzero(flat_n)  # candidate sets (invalid sets have n = 0)
-        with stage_timer(self.profiler, "host DP planning"):
+        with profile.span("host DP planning"):
             set_off = np.zeros(len(sel) + 1, np.int64)
             np.cumsum(flat_n[sel], out=set_off[1:])
             set_read = (sel // G).astype(np.int32)
             set_soc = hsoc.reshape(-1)[sel].astype(np.int32)
             planned = finish_native.plan(
-                self.pack, nw.cfg, reads, seqs_np, np.ascontiguousarray(hq, np.int32),
+                self.pack, self.nw_cfg, pb.reads, pb.seqs_np, np.ascontiguousarray(hq, np.int32),
                 np.ascontiguousarray(hl, np.int32), np.ascontiguousarray(hr, np.int32),
                 set_off, set_read, set_soc,
             )
         if planned is None:
-            return None
-        desc, toks, sbr = planned
-        n_prob = len(desc)
-        if n_prob and (int(desc[:, 2].max()) > 256 or int(desc[:, 5].max()) > 768):
-            return None
-        launched = []
-        with stage_timer(self.profiler, "dp dispatch"):
-            if n_prob:
-                m = np.maximum(desc[:, 2], 1)
-                n = np.maximum(desc[:, 5], 1)
-                isg = desc[:, 8]
-                Nb = np.where(n <= 128, 128, 768)
-                Mb = np.select([m <= 32, m <= 64], [32, 64], 256)
-                Mb = np.where((Nb == 768) & (Mb < 64), 64, Mb)
-                key = Mb.astype(np.int64) * 10000 + Nb * 4 + isg * 2
-                order = np.lexsort((m, key))
-                skey = key[order]
-                bounds = np.flatnonzero(np.concatenate(([True], skey[1:] != skey[:-1])))
-                bounds = np.concatenate((bounds, [n_prob]))
-                for bi in range(len(bounds) - 1):
-                    rows_all = order[bounds[bi] : bounds[bi + 1]]
-                    Mv, Nv = int(Mb[rows_all[0]]), int(Nb[rows_all[0]])
-                    is_glob = bool(isg[rows_all[0]])
-                    for s in range(0, len(rows_all), self.MAX_P_FUSED):
-                        rows = rows_all[s : s + self.MAX_P_FUSED]
-                        profile.host_sync()  # the upload from pageable memory
-                        d8 = torch.as_tensor(
-                            np.ascontiguousarray(desc[rows, :8].T), device=self.device
-                        )
-                        comb, runs_t = _dp_desc_runs_fused(
-                            self.text_dev, nw.seqs_dev, d8, M=Mv, N=Nv,
-                            params=nw.cfg.params,
-                            zdrop=-1 if is_glob else nw.cfg.zdrop, is_global=is_glob,
-                        )
-                        launched.append((rows, is_glob, comb, runs_t))
-        return (reads, nw, desc, toks, sbr, set_read, set_soc, seqs_np, launched)
+            return False
+        desc, toks, sbr = planned  # desc [n, 9]: a descriptor row, then is_global
+        if len(desc) and (int(desc[:, 2].max()) > 256 or int(desc[:, 5].max()) > 768):
+            return False
+        pb.toks, pb.sbr, pb.set_read, pb.set_soc = toks, sbr, set_read, set_soc
+        pb.dp = dispatch(desc, desc[:, 8] != 0, self.text_dev, seqs_dev, self.nw_cfg)
+        return True
 
-    def _assemble_native(self, state):
-        """Wait for the DP runs, redo run overflows, run the C++ assembler.
-        Returns (reads, nw, set_read, set_soc, out_op, out_len, out_off,
-        out_meta)."""
-        (reads, nw, desc, toks, sbr, set_read, set_soc, seqs_np, launched) = state
-        n_prob = len(desc)
-        prob_nr = np.zeros(n_prob, np.int64)
-        prob_meta = np.full((max(n_prob, 1), 2), -1, np.int64)
-        fwd_ops = []
-        with stage_timer(self.profiler, "device banded DP + traceback"):
-            for rows, is_glob, comb_d, runs_d in launched:
-                profile.host_sync()
-                comb = comb_d.cpu().numpy()
-                n_runs = comb[0]
-                over = comb[5]
-                smax = max(1, int(n_runs.max(initial=0)))
-                profile.host_sync()
-                runs_t = runs_d[:smax].cpu().numpy()
-                prob_nr[rows] = n_runs
-                prob_meta[rows, 0] = comb[2]
-                prob_meta[rows, 1] = comb[3]
-                # forward-order runs [K, smax]
-                jj = np.arange(smax)[None, :]
-                idx = np.clip(n_runs[:, None] - 1 - jj, 0, smax - 1)
-                fwd = np.take_along_axis(runs_t.T, idx, axis=1).astype(np.int64)
-                fwd = np.where(jj < n_runs[:, None], fwd, 0)
-                for k in np.flatnonzero(over):
-                    cig = nw.redo_one(DPProblem.from_desc(desc[rows[k]], is_glob))
-                    arr = np.asarray([o | (ln << 2) for (o, ln) in cig], np.int64)
-                    if len(arr) > fwd.shape[1]:
-                        wider = np.zeros((len(rows), len(arr)), np.int64)
-                        wider[:, : fwd.shape[1]] = fwd
-                        fwd = wider
-                    fwd[k] = 0
-                    fwd[k, : len(arr)] = arr
-                    prob_nr[rows[k]] = len(arr)
-                fwd_ops.append(fwd)
-            # global CSR over problems in row order
-            prob_off = np.zeros(n_prob + 1, np.int64)
-            np.cumsum(prob_nr, out=prob_off[1:])
-            prob_runs = np.zeros((int(prob_off[-1]), 2), np.int32)
-            for (rows, _g, _c, _r), fwd in zip(launched, fwd_ops):
-                nr = prob_nr[rows]
-                mask = np.arange(fwd.shape[1])[None, :] < nr[:, None]
-                vals = fwd[mask]
-                dest = (prob_off[rows][:, None] + np.arange(fwd.shape[1])[None, :])[mask]
-                prob_runs[dest, 0] = vals & 3
-                prob_runs[dest, 1] = vals >> 2
-        with stage_timer(self.profiler, "host CIGAR assembly"):
-            out_op, out_len, out_off, out_meta = finish_native.assemble(
-                toks, sbr, set_read, prob_runs, prob_off, prob_meta,
-                self.text_host, seqs_np, nw.cfg.params, nw.cfg.sv_penalty,
+    def _assemble_native(self, pb: PlannedBatch):
+        """Wait for the DP (`collect`), then the C++ assembler. Returns
+        (out_op, out_len, out_off, out_meta)."""
+        with profile.span("device banded DP + traceback"):
+            prob_runs, prob_off, prob_meta = collect(pb.dp, self.text_host, pb.seqs_np)
+        with profile.span("host CIGAR assembly"):
+            return finish_native.assemble(
+                pb.toks, pb.sbr, pb.set_read, prob_runs, prob_off, prob_meta,
+                self.text_host, pb.seqs_np, self.nw_cfg.params, self.nw_cfg.sv_penalty,
             )
-        return (reads, nw, set_read, set_soc, out_op, out_len, out_off, out_meta)
 
-    def _alignments(self, assembled) -> List[List[Alignment]]:
-        reads, nw, set_read, set_soc, out_op, out_len, out_off, out_meta = assembled
-        with stage_timer(self.profiler, "host CIGAR assembly"):
+    def _alignments(self, pb: PlannedBatch, assembled) -> List[List[Alignment]]:
+        out_op, out_len, out_off, out_meta = assembled
+        with profile.span("host CIGAR assembly"):
             per_read = finish_native.build_alignments(
-                out_op, out_len, out_off, out_meta, set_read, set_soc, reads,
-                nw.cfg.params, nw.cfg.sv_penalty,
+                out_op, out_len, out_off, out_meta, pb.set_read, pb.set_soc, pb.reads,
+                self.nw_cfg.params, self.nw_cfg.sv_penalty,
             )
-        return self._quality_phase(reads, per_read)
+        return self._quality_phase(pb.reads, per_read)
 
-    def _collect_native_sam(self, state, omit_sec: bool, omit_sup: bool):
+    def _collect_native_sam(self, pb: PlannedBatch, omit_sec: bool, omit_sup: bool):
         """Collect straight to SAM text: ("sam", bytes) or, when the C++
         writer declines the batch (CG-tag cigars), ("objects", alignments)."""
-        assembled = self._assemble_native(state)
-        reads, _nw, set_read, set_soc, out_op, out_len, out_off, out_meta = assembled
-        seqs_np = state[7]
+        assembled = self._assemble_native(pb)
+        out_op, out_len, out_off, out_meta = assembled
         g = self.pset.get
-        with stage_timer(self.profiler, "host SAM write"):
+        with profile.span("host SAM write"):
             res = finish_native.emit_sam(
-                out_op, out_len, out_off, out_meta, set_read, set_soc, reads, seqs_np,
-                self.pack, match=int(g("Match Score")),
+                out_op, out_len, out_off, out_meta, pb.set_read, pb.set_soc, pb.reads,
+                pb.seqs_np, self.pack, match=int(g("Match Score")),
                 max_supplementary=int(g("Number Supplementary Alignments")),
                 max_overlap=float(g("Maximal Supplementary Overlap")),
                 report_n=int(g("Maximal Number of Reported Alignments")),
@@ -625,23 +568,23 @@ class Aligner:
             )
         if res is not None:
             return ("sam", res[0])
-        return ("objects", self._alignments(assembled))
+        return ("objects", self._alignments(pb, assembled))
 
-    def _maybe_rescue(self, reads, results, nw):
+    def _maybe_rescue(self, pb: PlannedBatch, results):
         """Reads whose fixed-shape capacities truncated seeds or SoC windows
         re-align through a cap_boost'ed device stage; their results replace
         the truncated ones."""
-        flags = nw.overflow_flags
-        if flags is None or self._in_rescue or not flags.any():
+        reads = pb.reads
+        if self._in_rescue or not pb.overflow.any():
             return results
-        idx = [int(i) for i in np.flatnonzero(flags) if i < len(reads) and len(reads[i])]
+        idx = [int(i) for i in np.flatnonzero(pb.overflow) if i < len(reads) and len(reads[i])]
         if not idx:
             return results
         self._in_rescue = True
         old = self.cap_boost
         self.cap_boost = max(4 * old, 4)
         try:
-            with stage_timer(self.profiler, "overflow rescue"):
+            with profile.span("overflow rescue"):
                 res2 = self.align_batch([reads[i] for i in idx], pad_to=32)
             for k, i in enumerate(idx):
                 results[i] = res2[k]
@@ -651,30 +594,27 @@ class Aligner:
             self._in_rescue = False
         return results
 
-    def collect_batch(self, state) -> List[List[Alignment]]:
+    def collect_batch(self, pb: PlannedBatch) -> List[List[Alignment]]:
         """Wait for the DP, assemble, mapping quality, small inversions,
         overflow rescue."""
-        kind, st = state
-        if kind == "native":
-            results = self._alignments(self._assemble_native(st))
-            return self._maybe_rescue(st[0], results, st[1])
-        reads, nw, plans = st
-        with stage_timer(self.profiler, "device banded DP + traceback"):
-            nw.collect_batches()
-        per_read: List[List[Alignment]] = [[] for _ in reads]
-        with stage_timer(self.profiler, "host CIGAR assembly"):
-            for b, strip, (plan, begin_ref, ref) in plans:
-                aln = nw.assemble(plan, begin_ref, ref, reads[b].codes)
+        if pb.nw is None:
+            return self._maybe_rescue(pb, self._alignments(pb, self._assemble_native(pb)))
+        with profile.span("device banded DP + traceback"):
+            pb.nw.collect_batches()
+        per_read: List[List[Alignment]] = [[] for _ in pb.reads]
+        with profile.span("host CIGAR assembly"):
+            for b, strip, (plan, begin_ref, ref) in pb.plans:
+                aln = pb.nw.assemble(plan, begin_ref, ref, pb.reads[b].codes)
                 aln.stats.index_of_strip = strip
-                aln.stats.name = reads[b].name
+                aln.stats.name = pb.reads[b].name
                 per_read[b].append(aln)
-        return self._maybe_rescue(reads, self._quality_phase(reads, per_read), nw)
+        return self._maybe_rescue(pb, self._quality_phase(pb.reads, per_read))
 
     def _quality_phase(self, reads, per_read) -> List[List[Alignment]]:
         """Mapping quality, then small inversions (after mapping quality, so
         the inversions keep their MAPQ of 0)."""
         g = self.pset.get
-        with stage_timer(self.profiler, "host mapping quality"):
+        with profile.span("host mapping quality"):
             result = [
                 mapping_quality(
                     alns, len(reads[b]), match=int(g("Match Score")),
@@ -686,7 +626,7 @@ class Aligner:
                 for b, alns in enumerate(per_read)
             ]
         if bool(g("Detect Small Inversions")):
-            with stage_timer(self.profiler, "small inversions"):
+            with profile.span("small inversions"):
                 n_win, n_inv = small_inversions(
                     result, reads, self.pack, device=self.device, params=self.nw_cfg.params,
                     band=self.nw_cfg.band_ext, zdrop_inv=int(g("Z Drop Inversions")),
@@ -725,26 +665,25 @@ class Aligner:
 
         def run_batch(bucket: List[NucSeq]):
             nonlocal n
-            with stage_timer(self.profiler, "host batch prep"):
+            with profile.span("host batch prep"):
                 seqs, lens = self._pad_batch(bucket, len(bucket))
-            with stage_timer(self.profiler, "device seed+soc+harmonize"):
+            with profile.span("device seed+soc+harmonize"):
                 _harm, _soc, data, meta, seqs_d = self.run_device_stage(seqs, lens)
-            state = self.plan_batch(bucket, data, meta, seqs_d, seqs)
-            kind, st = state
+            pb = self.plan_batch(bucket, data, meta, seqs_d, seqs)
             # the rescue needs Alignment objects
-            if kind != "native" or not sam_native or st[1].overflow_flags.any():
-                results = self.collect_batch(state)
+            if pb.nw is not None or not sam_native or pb.overflow.any():
+                results = self.collect_batch(pb)
             else:
-                kind, res = self._collect_native_sam(st, omit_sec, omit_sup)
+                kind, res = self._collect_native_sam(pb, omit_sec, omit_sup)
                 if kind == "sam":
-                    with stage_timer(self.profiler, "host SAM write"):
+                    with profile.span("host SAM write"):
                         writer.write_text(res.decode("ascii"))
                     n += len(bucket)
                     results = None
                 else:
                     results = res
             if results is not None:
-                with stage_timer(self.profiler, "host SAM write"):
+                with profile.span("host SAM write"):
                     for read, alns in zip(bucket, results):
                         if omit_sec:
                             alns = [a for a in alns if not a.secondary]

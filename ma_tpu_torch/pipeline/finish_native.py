@@ -163,13 +163,6 @@ def _p(a, ct):
     return a.ctypes.data_as(ctypes.POINTER(ct))
 
 
-class NativePlanned:
-    """Opaque state between plan and assemble."""
-
-    __slots__ = ("desc", "n_prob", "toks", "set_begin_ref", "set_read",
-                 "set_soc", "launched", "nw", "reads")
-
-
 def plan(pack, cfg, reads, seqs_np, hq, hl, hr, set_off, set_read, set_soc):
     """Run the C++ planner. Returns (desc [n_prob, 9] int32, toks,
     set_begin_ref) or None if outputs overflow (caller falls back)."""

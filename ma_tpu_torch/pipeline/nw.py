@@ -8,18 +8,19 @@ descriptors into the device genome text and read batch:
 * gaps <= Maximal Gap Size -> banded global DP
 * larger gaps -> dual z-drop extension meeting in the middle
 * read ends -> one-sided z-drop extension (band Bandwidth for Extensions)
-All problems of a read batch are bucketed by shape and solved in a few
-device calls: problems with queries of at most 256 go to the fused DP
-(runs traced back on the device; kernel C, or C' past 1,024 reference
-columns, ops/dp_fused.py `fused_kernel`), one-sided extensions with longer
-queries to the chunked z-drop extension over kernel C, the rest to kernel
-D + the traceback kernel (ops/dp.py `_dp_tb_desc_runs`). Problems whose runs
-overflow kernel C's run buffer are redone through kernel D. `assemble`
+One-sided extensions with queries past 256 bases go to the chunked z-drop
+extension over kernel C, the rest to the DP batch protocol. `assemble`
 turns the plan tokens and cigars into an Alignment on the host.
 
-The native C++ planner/assembler (`ma_tpu_torch.pipeline.finish_native`) covers
-batches whose problems all fit the fused buckets; this module is the path
-for the rest, and the run-overflow redo of both.
+The DP batch protocol, `dispatch` and `collect`, serves this planner and
+the native C++ planner/assembler (`ma_tpu_torch.pipeline.finish_native`),
+which covers the batches whose problems all fit the fused buckets. It
+solves a batch's problems in a few device calls by shape: queries of at
+most 256 go to the fused DP (runs traced back on the device; kernel C, or
+C' past 1,024 reference columns, ops/dp_fused.py `fused_kernel`), the rest
+to kernel D + the traceback kernel (ops/dp.py `_dp_tb_desc_runs`).
+Problems whose runs overflow kernel C's run buffer are redone through
+kernel D.
 """
 from __future__ import annotations
 
@@ -32,7 +33,6 @@ import torch
 from ma_tpu_torch.containers.alignment import DELETION, INSERTION, SEED, Alignment
 from ma_tpu_torch.containers.pack import Pack
 from ma_tpu_torch.utils import profile
-from ma_tpu_torch.utils.profile import stage_timer
 from ma_tpu_torch.ops.dp import (
     OP_I,
     OP_M,
@@ -41,23 +41,15 @@ from ma_tpu_torch.ops.dp import (
     _dp_desc_runs_fused,
     _dp_tb_desc_runs,
     banded_align_traceback_packed,
-    packed_runs_to_cigars,
     rle_ops,
     runs_to_cigars,
 )
 
 
-def _next_pow2(n: int, lo: int = 8) -> int:
-    v = lo
-    while v < n:
-        v *= 2
-    return v
-
-
 @dataclasses.dataclass
 class DPProblem:
     """One DP problem: a descriptor against the device-resident operands,
-    or its own host operands (q, t), and its results."""
+    and its results."""
 
     band: int
     is_global: bool
@@ -68,25 +60,14 @@ class DPProblem:
     t_start: int = 0
     t_len: int = 0
     t_rev: int = 0
-    # host query / reference codes (reversed for a reverse extension) when
-    # the problem carries its own operands; None: read them via the descriptor
-    q: Optional[np.ndarray] = None
-    t: Optional[np.ndarray] = None
     # results
     cigar: Optional[List[Tuple[int, int]]] = None
     max_i: int = -1  # extension: last aligned query index (inclusive)
     max_j: int = -1
 
-    @classmethod
-    def from_desc(cls, row, is_global: bool) -> "DPProblem":
-        """From a planner descriptor row (read, q_off, q_len, q_rev,
-        t_start, t_len, t_rev, band, ...)."""
-        return cls(band=int(row[7]), is_global=is_global, read_idx=int(row[0]),
-                   q_off=int(row[1]), q_len=int(row[2]), q_rev=int(row[3]),
-                   t_start=int(row[4]), t_len=int(row[5]), t_rev=int(row[6]))
-
     def desc(self) -> Tuple[int, ...]:
-        """The descriptor row from_desc reads."""
+        """The descriptor row (read, q_off, q_len, q_rev, t_start, t_len,
+        t_rev, band)."""
         return (self.read_idx, self.q_off, self.q_len, self.q_rev, self.t_start, self.t_len,
                 self.t_rev, self.band)
 
@@ -121,26 +102,239 @@ def _contig_segment(pack: Pack, pos: int) -> Tuple[int, int]:
     return lo, hi
 
 
+# ------------------------------------------------------ DP batch protocol
+# fused-kernel buckets: glob (32, 128), ext (64, 768), ext/glob (256, 768);
+# past them kernel D's ladders, M and N bucketed independently (read-end
+# extensions pair short queries with ~band-wide reference windows)
+M_LADDER_FUSED = (32, 64, 256)
+N_LADDER_FUSED = (128, 768)
+M_LADDER = (16, 64, 256, 1024, 4096, 16384)
+N_LADDER = (64, 256, 768, 4096, 16384, 65536)
+MAX_P_FUSED = 4096  # problems per fused-kernel launch
+
+
+def _rung(ladder, x: np.ndarray) -> np.ndarray:
+    """The first rung of `ladder` at least x; past the top, the next power
+    of two."""
+    lad = np.asarray(ladder, np.int64)
+    i = np.searchsorted(lad, x)
+    pow2 = np.left_shift(1, np.frexp(x - 1)[1]).astype(np.int64)
+    return np.where(i < len(lad), lad[np.minimum(i, len(lad) - 1)], pow2)
+
+
+def bucket_shapes(m, n) -> Tuple[np.ndarray, np.ndarray]:
+    """(M, N) buckets of problems of m query and n reference bases (arrays
+    of values >= 1): the fused buckets up to 256 x 768, M at least 64 at N
+    = 768; past them, M and N each on kernel D's ladder."""
+    m = np.asarray(m, np.int64)
+    n = np.asarray(n, np.int64)
+    fused = (m <= 256) & (n <= 768)
+    Nf = _rung(N_LADDER_FUSED, n)
+    Mf = np.maximum(_rung(M_LADDER_FUSED, m), np.where(Nf == 768, 64, 0))
+    return np.where(fused, Mf, _rung(M_LADDER, m)), np.where(fused, Nf, _rung(N_LADDER, n))
+
+
+def _max_p(M: int, N: int) -> int:
+    """Problems per kernel-D call: the [P, M, N] direction bytes stay
+    within ~1 GiB. The cap may fall to 1 (a 16384 x 65536 problem is 1 GiB
+    on its own)."""
+    cap = 4096
+    while cap > 1 and cap * M * N > 2**30:
+        cap //= 2
+    return cap
+
+
+@dataclasses.dataclass
+class Dispatched:
+    """The DP of one batch in flight: the descriptor rows (columns past the
+    eighth are not read), their modes, the configuration, the device and
+    each launch as (rows, M, N, is_global, outputs), N the bucket's."""
+
+    desc: np.ndarray
+    is_global: np.ndarray
+    cfg: NWConfig
+    device: torch.device
+    launches: list
+
+
+def dispatch(desc: np.ndarray, is_global, text_dev: torch.Tensor, seqs_dev: torch.Tensor,
+             cfg: NWConfig) -> Dispatched:
+    """Launch the DP of descriptor rows desc [K, >= 8] int32 with modes
+    is_global [K]; torch enqueues the launches without waiting. Each (M, N,
+    mode) bucket goes to the fused kernel (M <= 256: `_dp_desc_runs_fused`)
+    in launches of at most MAX_P_FUSED problems, or to kernel D
+    (`_dp_tb_desc_runs`) in launches of at most `_max_p`, its rows by query
+    length: the fused kernel's rows run to each problem's own qlen, so
+    sorted rows keep its blocks homogeneous."""
+    is_global = np.asarray(is_global, bool)
+    m = np.maximum(desc[:, 2], 1)
+    Mb, Nb = bucket_shapes(m, np.maximum(desc[:, 5], 1))
+    order = np.lexsort((m, is_global, Nb, Mb))
+    key = np.stack([Mb, Nb, is_global])[:, order]
+    cuts = np.flatnonzero((key[:, 1:] != key[:, :-1]).any(0)) + 1
+    launches = []
+    with profile.span("dp dispatch"):
+        for bucket in np.split(order, cuts) if len(order) else []:
+            M, N, g = int(Mb[bucket[0]]), int(Nb[bucket[0]]), bool(is_global[bucket[0]])
+            fused = M <= 256
+            step = MAX_P_FUSED if fused else _max_p(M, N)
+            for s in range(0, len(bucket), step):
+                rows = bucket[s : s + step]
+                width = N
+                if fused and N > N_LADDER_FUSED[-1]:
+                    # a fused bucket past the fused ladder (an extension
+                    # with m = 256, n = 769) runs as wide as its longest
+                    # reference needs, so that up to 1,024 columns stay on
+                    # kernel C; no result depends on the width
+                    width = -(-int(desc[rows, 5].max()) // 128) * 128
+                profile.host_sync()  # the upload from pageable memory
+                d8 = torch.as_tensor(np.ascontiguousarray(desc[rows, :8].T),
+                                     device=seqs_dev.device)
+                fn = _dp_desc_runs_fused if fused else _dp_tb_desc_runs
+                out = fn(text_dev, seqs_dev, d8, M=M, N=width, params=cfg.params,
+                         zdrop=-1 if g else cfg.zdrop, is_global=g)
+                launches.append((rows, M, N, g, out))
+    return Dispatched(desc, is_global, cfg, seqs_dev.device, launches)
+
+
+def fused_results(comb_d: torch.Tensor, runs_d: torch.Tensor):
+    """Download a fused launch's results (`_dp_desc_runs_fused`'s comb and
+    runs_t) in the fewest waits: comb whole, then runs_t only where a
+    problem holds more runs than the RUNS_HEAD that comb carries. Returns
+    (meta [8, P] int64, runs [P, S] int64: op | len << 2 in forward order,
+    0 past each problem's n_runs; S the most runs of any problem, >= 1)."""
+    profile.host_sync()
+    comb = comb_d.cpu().numpy().astype(np.int64)
+    n_runs = comb[0]
+    S = max(1, int(n_runs.max(initial=0)))
+    if S > RUNS_HEAD:
+        profile.host_sync()
+        back = runs_d[:S].cpu().numpy().astype(np.int64)
+    else:
+        back = comb[8 : 8 + S]
+    # stored back to front: a problem's j-th run is its row n_runs - 1 - j
+    j = np.arange(S)[None, :]
+    fwd = np.take_along_axis(back.T, np.clip(n_runs[:, None] - 1 - j, 0, S - 1), 1)
+    return comb[:8], np.where(j < n_runs[:, None], fwd, 0)
+
+
+def _redo_cigars(desc: np.ndarray, is_global: np.ndarray, text_host: np.ndarray,
+                 seqs_np: np.ndarray, cfg: NWConfig, device) -> List[List[Tuple[int, int]]]:
+    """Forward-order cigars of descriptor rows desc [k, >= 8] whose runs
+    overflowed kernel C's run buffer, re-solved from the host copies of the
+    genome text and read batch through kernel D + the traceback kernel on
+    `device`, in calls by mode bounded like _max_p. ma_tpu's redo runs
+    `banded_align_traceback`, whose DP MA_TPU_DP picks: under the reference
+    setting (fused) the XLA anti-diagonal DP, which D matches cell for
+    cell; unset, the XLA row DP."""
+    cigars: List[Optional[list]] = [None] * len(desc)
+    for g in (True, False):
+        ks = np.flatnonzero(np.asarray(is_global, bool) == g)
+        if not len(ks):
+            continue
+        ops_in = []
+        for read, q_off, q_len, q_rev, t_start, t_len, t_rev in desc[ks, :7].tolist():
+            q = seqs_np[read, q_off : q_off + q_len]
+            t = text_host[t_start : t_start + t_len]
+            ops_in.append((q[::-1] if q_rev else q, t[::-1] if t_rev else t))
+        M = max(max(len(q), 1) for q, _ in ops_in)
+        N = max(max(len(t), 1) for _, t in ops_in)
+        step = _max_p(M, N)
+        for s in range(0, len(ks), step):
+            part = ops_in[s : s + step]
+            qa = np.full((len(part), M), 4, np.uint8)
+            ta = np.full((len(part), N), 4, np.uint8)
+            for r, (q, t) in enumerate(part):
+                qa[r, : len(q)] = q
+                ta[r, : len(t)] = t
+            lens = [np.asarray([len(x[c]) for x in part], np.int32) for c in (0, 1)]
+            ops, meta = banded_align_traceback_packed(
+                qa, ta, lens[0], lens[1], desc[ks[s : s + step], 7].astype(np.int32),
+                device=device, params=cfg.params, zdrop=-1 if g else cfg.zdrop,
+                is_global=g)
+            for r, k in enumerate(ks[s : s + step]):
+                cigars[k] = rle_ops(ops[r], int(meta[0][r]), int(meta[1][r]), int(meta[2][r]))
+    return cigars
+
+
+def collect(dp: Dispatched, text_host: np.ndarray, seqs_np: np.ndarray):
+    """Wait for `dispatch`'s launches and decode them; the problems whose
+    runs overflowed kernel C's run buffer are redone together
+    (`_redo_cigars`) and keep the fused pass's max_i / max_j. Returns, in
+    descriptor-row order, the forward-order runs as a CSR (runs [R, 2]
+    int32: op, length; off [K + 1] int64) and meta [max(K, 1), 2] int64:
+    max_i, max_j (-1 where the kernel keeps no max-cell book)."""
+    K = len(dp.desc)
+    n_runs = np.zeros(K, np.int64)
+    meta = np.full((max(K, 1), 2), -1, np.int64)
+    blocks = []  # (rows, forward runs) of the fused launches
+    listed: Dict[int, list] = {}  # row -> cigar: kernel D's rows and the redone rows
+    redo: List[int] = []
+    for rows, M, N, g, out in dp.launches:
+        with profile.span(f"dp collect {'glob' if g else 'ext'} {M}x{N}"):
+            if M <= 256:
+                m8, fwd = fused_results(*out)
+                n_runs[rows] = m8[0]
+                meta[rows] = m8[2:4].T
+                blocks.append((rows, fwd))
+                redo += rows[m8[5] != 0].tolist()
+                continue
+            ops_d, meta_d, run_op_d, run_start_d, n_runs_d = out
+            profile.host_sync(4)
+            m7 = meta_d.cpu().numpy()
+            n_ops, rem_i, rem_j = m7[0], m7[1], m7[2]
+            cigars = runs_to_cigars(run_op_d.cpu().numpy(), run_start_d.cpu().numpy(),
+                                    n_ops, n_runs_d.cpu().numpy(), rem_i, rem_j)
+            for k, cg in enumerate(cigars):
+                if cg is None:  # more than MAX_RUNS runs: decode the ops row
+                    n = int(n_ops[k])
+                    profile.host_sync()
+                    row = ops_d[k, : min(max(128, -(-n // 128) * 128),
+                                         ops_d.shape[1])].cpu().numpy()
+                    cg = rle_ops(row, n, int(rem_i[k]), int(rem_j[k]))
+                listed[int(rows[k])] = cg
+            meta[rows] = m7[4:6].T
+    if redo:
+        with profile.span("dp redo batched"):
+            listed.update(zip(redo, _redo_cigars(dp.desc[redo], dp.is_global[redo], text_host,
+                                                 seqs_np, dp.cfg, dp.device)))
+    own = np.zeros(K, bool)
+    own[list(listed)] = True
+    for r, cg in listed.items():
+        n_runs[r] = len(cg)
+    off = np.zeros(K + 1, np.int64)
+    np.cumsum(n_runs, out=off[1:])
+    runs = np.zeros((int(off[-1]), 2), np.int32)
+    for rows, fwd in blocks:
+        j = np.arange(fwd.shape[1])[None, :]
+        mask = j < np.where(own[rows], 0, n_runs[rows])[:, None]
+        dest = (off[rows][:, None] + j)[mask]
+        runs[dest, 0] = fwd[mask] & 3
+        runs[dest, 1] = fwd[mask] >> 2
+    for r, cg in listed.items():
+        if cg:
+            runs[off[r] : off[r + 1]] = cg
+    return runs, off, meta
+
+
 class NWAligner:
-    """Per-batch DP state: the configuration, the device genome text and
-    read batch the descriptors point into (and their host copies, which
-    the run-overflow redo reads), the planned problems and the batch's
-    overflow flags."""
+    """The Python path's planner and assembler of one batch: the
+    configuration, the device genome text and read batch the descriptors
+    point into (and their host copies, which the run-overflow redo reads),
+    and the planned problems."""
 
     def __init__(self, pack: Pack, config: NWConfig, text_dev: torch.Tensor,
-                 seqs_dev: torch.Tensor, text_host: np.ndarray, seqs_np: np.ndarray,
-                 profiler=None):
+                 seqs_dev: torch.Tensor, text_host: np.ndarray, seqs_np: np.ndarray):
         self.pack = pack
         self.cfg = config
         self.text_dev = text_dev
         self.seqs_dev = seqs_dev
         self.text_host = text_host
         self.seqs_np = seqs_np
-        self.profiler = profiler
-        self.overflow_flags: Optional[np.ndarray] = None
         self._problems: List[DPProblem] = []
         self._read_idx = -1  # set by plan_set
-        self._launched = None  # dispatched device calls awaiting collect
+        self._dp: Optional[Dispatched] = None  # dispatched DP awaiting collect
+        self._dispatched: List[int] = []  # its problems, in descriptor-row order
         self._chunked_pending: List[int] = []
 
     @property
@@ -255,204 +449,38 @@ class NWAligner:
                            True, begin_ref=begin_ref)
         return plan, begin_ref, ref
 
-    # (M, N) bucket ladders of the direction-tensor DP; M and N are bucketed
-    # independently (read-end extensions pair short queries with ~band-wide
-    # reference windows)
-    N_LADDER = [64, 256, 768, 4096, 16384, 65536]
-    M_LADDER = [16, 64, 256, 1024, 4096, 16384]
-
-    @classmethod
-    def _bucket_shape(cls, m: int, n: int):
-        M = next((v for v in cls.M_LADDER if m <= v), _next_pow2(m))
-        N = next((v for v in cls.N_LADDER if n <= v), _next_pow2(n))
-        return (M, N)
-
-    @staticmethod
-    def _max_p(M: int, N: int) -> int:
-        """Problems per direction-tensor call: the [P, M, N] direction bytes
-        stay within ~1 GiB. The cap may fall to 1 (a 16384 x 65536 problem
-        is 1 GiB on its own)."""
-        cap = 4096
-        while cap > 1 and cap * M * N > 2**30:
-            cap //= 2
-        return cap
-
-    # fused-kernel buckets: glob (32, 128), ext (64, 768), ext/glob (256, 768)
-    M_LADDER_FUSED = [32, 64, 256]
-    N_LADDER_FUSED = [128, 768]
-    MAX_P_FUSED = 4096  # problems per fused-kernel call
-
-    @classmethod
-    def _bucket_shape_fused(cls, m: int, n: int):
-        if m <= 256 and n <= 768:
-            M = next(v for v in cls.M_LADDER_FUSED if m <= v)
-            N = next(v for v in cls.N_LADDER_FUSED if n <= v)
-            if N == 768:
-                M = max(M, 64)
-            return (M, N)
-        return cls._bucket_shape(m, n)
-
     # ------------------------------------------------------------ execution
     def dispatch_batches(self):
-        """Launch every bucket's device call (torch enqueues them without
-        waiting); long one-sided extensions are held for the chunked path,
-        which runs in collect_batches."""
-        buckets: Dict[tuple, List[int]] = {}
-        chunked: List[int] = []
-        for i, p in enumerate(self._problems):
-            m, n = max(p.q_len, 1), max(p.t_len, 1)
-            if not p.is_global and m > 256:
-                chunked.append(i)
-                continue
-            M, N = self._bucket_shape_fused(m, n)
-            buckets.setdefault((M, N, p.is_global), []).append(i)
-        self._chunked_pending = chunked
-        launched = []
-        with stage_timer(self.profiler, "dp dispatch"):
-            for (M, N, is_global), idxs in buckets.items():
-                use_fused = M <= 256
-                max_p = self.MAX_P_FUSED if use_fused else self._max_p(M, N)
-                # the fused kernel's rows run to each problem's own qlen:
-                # sorting by query length keeps blocks homogeneous
-                idxs.sort(key=lambda i: self._problems[i].q_len)
-                for s in range(0, len(idxs), max_p):
-                    part = idxs[s : s + max_p]
-                    width = N
-                    if use_fused and N > self.N_LADDER_FUSED[-1]:
-                        # a fused bucket past the fused ladder (an extension
-                        # with m = 256, n = 769) runs as wide as its longest
-                        # reference needs, so that up to 1,024 columns stay
-                        # on kernel C (banded_align_runs takes C' up to
-                        # 4,096); no result depends on the width
-                        width = -(-max(self._problems[i].t_len for i in part) // 128) * 128
-                    profile.host_sync()  # the upload from pageable memory
-                    desc = torch.as_tensor(np.asarray(
-                        [self._problems[i].desc() for i in part], np.int32).T.copy(),
-                        device=self.device)
-                    fn = _dp_desc_runs_fused if use_fused else _dp_tb_desc_runs
-                    out = fn(self.text_dev, self.seqs_dev, desc, M=M, N=width,
-                             params=self.cfg.params,
-                             zdrop=-1 if is_global else self.cfg.zdrop, is_global=is_global)
-                    launched.append(((M, N, is_global), part, out, use_fused))
-        self._launched = launched
+        """Launch the DP of every planned problem (`dispatch`); one-sided
+        extensions with queries past 256 bases are held for the chunked
+        path, which runs in collect_batches."""
+        probs = self._problems
+        self._chunked_pending = [i for i, p in enumerate(probs)
+                                 if not p.is_global and p.q_len > 256]
+        held = set(self._chunked_pending)
+        self._dispatched = [i for i in range(len(probs)) if i not in held]
+        desc = np.asarray([probs[i].desc() for i in self._dispatched], np.int32).reshape(-1, 8)
+        self._dp = dispatch(desc, [probs[i].is_global for i in self._dispatched],
+                            self.text_dev, self.seqs_dev, self.cfg)
 
     def collect_batches(self):
-        self._collect(self._launched)
-        self._launched = None
-
-    def _collect(self, launched):
-        """Download the runs (fused) or run boundaries (kernel D) of every
-        bucket, run the chunked long extensions, decode cigars, and redo the
-        fused problems whose runs overflowed."""
-        redo_items: List[int] = []
-        chunked = self._chunked_pending
-        if chunked:
-            with stage_timer(self.profiler, "dp chunked long ext"):
-                self._chunked_ext(chunked)
+        """Run the chunked long extensions, then `collect` the dispatched
+        DP into the problems' cigars and end cells."""
+        if self._chunked_pending:
+            with profile.span("dp chunked long ext"):
+                self._chunked_ext(self._chunked_pending)
             self._chunked_pending = []
-        for (M, N, is_global), idxs, out, use_fused in launched:
-            K = len(idxs)
-            with stage_timer(self.profiler,
-                             f"dp collect {'glob' if is_global else 'ext'} {M}x{N}"):
-                if use_fused:
-                    comb_d, runs_d = out
-                    profile.host_sync()
-                    meta = comb_d[:8].cpu().numpy()
-                    n_runs = meta[0]
-                    smax = max(1, int(n_runs.max(initial=0)))
-                    profile.host_sync()
-                    runs_t = (runs_d[:smax].cpu().numpy() if smax > RUNS_HEAD
-                              else comb_d[8 : 8 + smax].cpu().numpy())
-                    cigars = packed_runs_to_cigars(runs_t, n_runs)
-                    for k in range(K):
-                        if cigars[k] is None or meta[5][k]:
-                            redo_items.append(idxs[k])
-                            cigars[k] = None
-                    max_i, max_j = meta[2], meta[3]
-                else:
-                    ops_d, meta_d, run_op_d, run_start_d, n_runs_d = out
-                    profile.host_sync(4)
-                    meta = meta_d.cpu().numpy()
-                    n_ops, rem_i, rem_j = meta[0], meta[1], meta[2]
-                    cigars = runs_to_cigars(run_op_d.cpu().numpy(), run_start_d.cpu().numpy(),
-                                            n_ops, n_runs_d.cpu().numpy(), rem_i, rem_j)
-                    for k, cg in enumerate(cigars):
-                        if cg is None:  # more than MAX_RUNS runs: decode the ops row
-                            n = int(n_ops[k])
-                            profile.host_sync()
-                            row = ops_d[k, : min(max(128, -(-n // 128) * 128),
-                                                 ops_d.shape[1])].cpu().numpy()
-                            cigars[k] = rle_ops(row, n, int(rem_i[k]), int(rem_j[k]))
-                    max_i, max_j = meta[4], meta[5]
-            for k, i in enumerate(idxs):
-                p = self._problems[i]
-                if is_global:
-                    p.max_i, p.max_j = p.q_len - 1, p.t_len - 1
-                    p.cigar = cigars[k]
-                else:
-                    p.max_i, p.max_j = int(max_i[k]), int(max_j[k])
-                    p.cigar = cigars[k] if p.max_i >= 0 else []
-        if redo_items:
-            with stage_timer(self.profiler, "dp redo batched"):
-                self._redo_batched(redo_items)
-
-    # --------------------------------------------------- run-overflow redo
-    def _host_operands(self, p: DPProblem):
-        """The problem's query and reference codes, as the DP sees them."""
-        if p.q is not None:
-            return p.q, p.t
-        q = self.seqs_np[p.read_idx, p.q_off : p.q_off + p.q_len]
-        t = self.text_host[p.t_start : p.t_start + p.t_len]
-        return (q[::-1] if p.q_rev else q), (t[::-1] if p.t_rev else t)
-
-    def _redo_cigars(self, probs: Sequence[DPProblem]) -> List[List[Tuple[int, int]]]:
-        """Cigars of problems whose runs overflowed kernel C's run buffer,
-        re-solved through kernel D + the traceback kernel on the batch's
-        device, in calls grouped by mode and bounded like _max_p. ma_tpu's
-        redo runs `banded_align_traceback`, whose DP MA_TPU_DP picks: under
-        the reference setting (fused) the XLA anti-diagonal DP, which D
-        matches cell for cell; unset, the XLA row DP."""
-        cigars: List[Optional[list]] = [None] * len(probs)
-        groups: Dict[bool, List[int]] = {}
-        for k, p in enumerate(probs):
-            groups.setdefault(p.is_global, []).append(k)
-        for is_global, ks in groups.items():
-            ops_in = [self._host_operands(probs[k]) for k in ks]
-            M = max(max(len(q), 1) for q, _ in ops_in)
-            N = max(max(len(t), 1) for _, t in ops_in)
-            step = self._max_p(M, N)
-            for s in range(0, len(ks), step):
-                part = list(range(s, min(s + step, len(ks))))
-                qa = np.full((len(part), M), 4, np.uint8)
-                ta = np.full((len(part), N), 4, np.uint8)
-                for r, x in enumerate(part):
-                    q, t = ops_in[x]
-                    qa[r, : len(q)] = q
-                    ta[r, : len(t)] = t
-                lens = [np.asarray([len(ops_in[x][c]) for x in part], np.int32)
-                        for c in (0, 1)]
-                band = np.asarray([probs[ks[x]].band for x in part], np.int32)
-                ops, meta = banded_align_traceback_packed(
-                    qa, ta, lens[0], lens[1], band, device=self.device,
-                    params=self.cfg.params, zdrop=-1 if is_global else self.cfg.zdrop,
-                    is_global=is_global)
-                for r, x in enumerate(part):
-                    cigars[ks[x]] = rle_ops(ops[r], int(meta[0][r]), int(meta[1][r]),
-                                            int(meta[2][r]))
-        return cigars
-
-    def redo_one(self, p: DPProblem) -> List[Tuple[int, int]]:
-        """The native path's redo of one problem whose runs overflowed
-        kernel C's run buffer: its forward-order cigar from kernel D."""
-        return self._redo_cigars([p])[0]
-
-    def _redo_batched(self, idxs: Sequence[int]):
-        """Redo every fused problem of the batch whose runs overflowed; the
-        problems keep the fused forward pass's max_i / max_j, only the cigar
-        is recomputed."""
-        probs = [self._problems[i] for i in idxs]
-        for p, cg in zip(probs, self._redo_cigars(probs)):
-            p.cigar = cg if (p.is_global or p.max_i >= 0) else []
+        runs, off, meta = collect(self._dp, self.text_host, self.seqs_np)
+        self._dp = None
+        for k, i in enumerate(self._dispatched):
+            p = self._problems[i]
+            cigar = [tuple(r) for r in runs[off[k] : off[k + 1]].tolist()]
+            if p.is_global:
+                p.max_i, p.max_j = p.q_len - 1, p.t_len - 1
+                p.cigar = cigar
+            else:
+                p.max_i, p.max_j = int(meta[k, 0]), int(meta[k, 1])
+                p.cigar = cigar if p.max_i >= 0 else []
 
     # ------------------------------------------------- chunked long-read ext
     CHUNK_M = 256  # query bases per chunk (a fused-kernel bucket)
@@ -499,22 +527,13 @@ class NWAligner:
                 lens.append((qc, tc))
             tb = torch.full((len(active),), tb_last_flag, dtype=torch.int32, device=self.device)
             profile.host_sync()  # desc's upload from pageable memory
-            comb_d, runs_full_d = _dp_desc_runs_fused(
+            meta, runs = fused_results(*_dp_desc_runs_fused(
                 self.text_dev, self.seqs_dev, torch.as_tensor(desc, device=self.device),
-                M=CH, N=CN, params=cfg.params, zdrop=cfg.zdrop, is_global=False, tb_last=tb)
-            profile.host_sync()
-            comb = comb_d.cpu().numpy().astype(np.int64)
-            meta = comb[:8]
-            smax = max(1, int(meta[0].max(initial=0)))
-            if smax > RUNS_HEAD:
-                profile.host_sync()
-            runs = (runs_full_d[:smax].cpu().numpy().astype(np.int64) if smax > RUNS_HEAD
-                    else comb[8 : 8 + smax])
+                M=CH, N=CN, params=cfg.params, zdrop=cfg.zdrop, is_global=False, tb_last=tb))
             return meta, runs, lens
 
         def runs_of(runs, k, n_runs):
-            return [(int(runs[j, k]) & 3, int(runs[j, k]) >> 2)
-                    for j in range(n_runs - 1, -1, -1)]
+            return [(v & 3, v >> 2) for v in runs[k, :n_runs].tolist()]
 
         active = [s for s in states if self._problems[s.pi].q_len > 0]
         rounds = 0

@@ -314,18 +314,19 @@ def test_dp_fused_tally(cuda):
     assert kernels.DP_FUSED.launches == 3
 
 
-def test_dp_v2_selection_launches_c_prime(cuda, monkeypatch):
+def test_dp_v2_selection_launches_c_prime(cuda):
+    """banded_align_runs picks the kernel by width alone: C at 1,024
+    columns, C' at 1,025."""
     from ma_tpu_torch import kernels
     from ma_tpu_torch.ops.dp_fused import banded_align_runs
 
-    args, tb = _dp_problems(np.random.default_rng(3), 16, 32, 128, False, cuda)
     counts = lambda: (kernels.DP_FUSED.launches, kernels.DP_FUSED_V2.launches)  # noqa: E731
-    c0, v0 = counts()
-    banded_align_runs(*args, M=32, N=128, zdrop=30, is_global=False, tb_last=tb)
-    monkeypatch.setenv("MA_TPU_DP_V2", "1")
-    banded_align_runs(*args, M=32, N=128, zdrop=30, is_global=False, tb_last=tb)
-    torch.cuda.synchronize()
-    assert counts() == (c0 + 1, v0 + 1)
+    for N, grew in ((1024, (1, 0)), (1025, (0, 1))):
+        args, tb = _dp_problems(np.random.default_rng(3), 16, 32, N, False, cuda)
+        c0, v0 = counts()
+        banded_align_runs(*args, M=32, N=N, zdrop=30, is_global=False, tb_last=tb)
+        torch.cuda.synchronize()
+        assert counts() == (c0 + grew[0], v0 + grew[1]), N
 
 
 def test_fmd_ops_on_cuda(cuda):
@@ -559,16 +560,14 @@ def test_kernels_count_launches(cuda):
 
 @pytest.mark.parametrize("N", [1152, 4096, 4224, 8320])
 @pytest.mark.parametrize("is_global", [True, False])
-def test_wide_fused_problems_take_c_prime(cuda, monkeypatch, N, is_global):
-    """Past kernel C's 1,024 columns banded_align_runs launches C' with
-    MA_TPU_DP_V2 unset, tallied per (M, N, mode), exact against the plain
-    version: rows walked in chunks of 1,024 columns from the band's left
-    edge."""
+def test_wide_fused_problems_take_c_prime(cuda, N, is_global):
+    """Past kernel C's 1,024 columns banded_align_runs launches C',
+    tallied per (M, N, mode), exact against the plain version: rows walked
+    in chunks of 1,024 columns from the band's left edge."""
     from ma_tpu_torch import kernels
     from ma_tpu_torch.ops.dp import DPParams
     from ma_tpu_torch.ops.dp_fused import banded_align_runs, banded_align_runs_plain
 
-    monkeypatch.delenv("MA_TPU_DP_V2", raising=False)
     args, tb = _dp_problems(np.random.default_rng(N + int(is_global)), 48, 256, N, is_global,
                             cuda)
     kw = dict(M=256, N=N, params=DPParams(), zdrop=-1 if is_global else 200,
@@ -585,7 +584,7 @@ def test_wide_fused_problems_take_c_prime(cuda, monkeypatch, N, is_global):
 
 
 @pytest.mark.parametrize("is_global", [True, False])
-def test_fused_problems_past_c_prime(cuda, monkeypatch, is_global):
+def test_fused_problems_past_c_prime(cuda, is_global):
     """Past 65,535 columns (beyond a 16-bit column in the row-max key): C'
     launches, in both modes, and nothing else does; nothing raises; exact
     against the fused plain version, with targets that reach the last
@@ -594,7 +593,6 @@ def test_fused_problems_past_c_prime(cuda, monkeypatch, is_global):
     from ma_tpu_torch.ops.dp import DPParams
     from ma_tpu_torch.ops.dp_fused import banded_align_runs, banded_align_runs_plain
 
-    monkeypatch.delenv("MA_TPU_DP_V2", raising=False)
     N, M, P = 65_600, 16, 12
     rng = np.random.default_rng(4 + int(is_global))
     (q, t, qlen, tlen, band), tb = _dp_problems(rng, P, M, N, is_global, cuda)

@@ -15,6 +15,7 @@ from ma_tpu.ops import dp as JD  # noqa: E402
 from ma_tpu.ops.dp_fused import banded_align_runs as pallas_runs  # noqa: E402
 from ma_tpu_torch.ops import dp as TD  # noqa: E402
 from ma_tpu_torch.ops.dp_fused import banded_align_runs, banded_align_runs_plain  # noqa: E402
+from ma_tpu_torch.pipeline.nw import fused_results  # noqa: E402
 
 # the suite runs several test processes side by side on the CPU; one
 # intra-op thread each keeps torch's many small ops from contending
@@ -161,7 +162,10 @@ def test_desc_mode_matches():
         assert np.array_equal(jc[:7], np.clip(tc[:7], -32768, 32767))
         assert np.array_equal(jc[8:], tc[8:])
         assert np.array_equal(np.asarray(jr), tr.numpy())
-        cig = TD.packed_runs_to_cigars(tr.numpy(), tc[0])
+        # the batch protocol's decode (comb whole, runs_t only past RUNS_HEAD)
+        meta, fwd = fused_results(torch.as_tensor(tc), tr)
+        assert np.array_equal(meta, tc[:8])
+        cig = [[(v & 3, v >> 2) for v in fwd[k, : meta[0][k]].tolist()] for k in range(P)]
         assert cig == JD.packed_runs_to_cigars(np.asarray(jr), np.asarray(jc[0]))
 
 
@@ -169,13 +173,14 @@ def test_desc_mode_matches():
 def test_run_overflow_redo_matches_ma_tpu(is_global, monkeypatch):
     """Problems whose runs overflow kernel C's run buffer (forced with
     R = 4) are redone through kernel D + the traceback kernel: the cigars of
-    the native path's redo_one and of the Python path's _redo_batched equal
-    ma_tpu's _redo_one (MA_TPU_DP=fused: the XLA anti-diagonal DP)."""
+    the batch protocol's redo, for a batch of one and for the whole batch,
+    equal ma_tpu's _redo_one (MA_TPU_DP=fused: the XLA anti-diagonal DP);
+    so do those `collect` returns for the overflowed rows of a dispatched
+    batch, which keep the fused pass's max_i / max_j."""
     from ma_tpu.containers.pack import Pack as JPack
     from ma_tpu.pipeline.nw import DPProblem as JProblem
     from ma_tpu.pipeline.nw import NWAligner as JNW
-    from ma_tpu_torch.containers.pack import Pack
-    from ma_tpu_torch.pipeline.nw import DPProblem, NWAligner, NWConfig
+    from ma_tpu_torch.pipeline import nw as TNW
 
     rng = np.random.default_rng(21)
     B, L, T, P, M, N = 2, 400, 4000, 10, 64, 128
@@ -200,9 +205,8 @@ def test_run_overflow_redo_matches_ma_tpu(is_global, monkeypatch):
     over = np.flatnonzero(meta[5].numpy())
     assert len(over) >= P // 2
 
-    jpack, pack = JPack.empty(), Pack.empty()
+    jpack = JPack.empty()
     jpack.append("g", text)
-    pack.append("g", text)
     monkeypatch.setenv("MA_TPU_DP", "fused")
     jax.clear_caches()
     try:
@@ -217,30 +221,32 @@ def test_run_overflow_redo_matches_ma_tpu(is_global, monkeypatch):
             want.append(jnw._redo_one(len(jnw._problems) - 1, is_global))
     finally:
         jax.clear_caches()
-    nw = NWAligner(pack, NWConfig(), torch.as_tensor(text), torch.as_tensor(seqs), text, seqs)
-    got = [nw.redo_one(DPProblem.from_desc(desc[k], is_global)) for k in over]
-    assert got == want and all(len(c) > 4 for c in got)
-    # a problem that carries its own host operands
-    own = []
-    for k in over:
-        p = DPProblem.from_desc(desc[k], is_global)
-        p.q, p.t = (a.numpy()[k, : int(n[k])] for a, n in ((q, qlen), (t, tlen)))
-        p.read_idx = -1
-        own.append(nw.redo_one(p))
-    assert own == want
-    nw._problems = [DPProblem.from_desc(desc[k], is_global) for k in over]
-    for p in nw._problems:
-        p.max_i = 0  # the fused forward pass's end cell: kept, only the cigar is redone
-    nw._redo_batched(range(len(over)))
-    assert [p.cigar for p in nw._problems] == want
-    assert all(p.max_i == 0 for p in nw._problems)
+    cfg = TNW.NWConfig()
+    isg = np.full(P, is_global)
+    redo = lambda rows: TNW._redo_cigars(desc[rows], isg[rows], text, seqs, cfg,  # noqa: E731
+                                         torch.device("cpu"))
+    assert [redo([k])[0] for k in over] == want and all(len(c) > 4 for c in want)
+    assert redo(over) == want
+    # through dispatch and collect, with the fused kernel's run buffer cut to
+    # 4: one redo call takes every overflowed row
+    monkeypatch.setattr(TD, "run_capacity", lambda M: 4)
+    calls, redo_cigars = [], TNW._redo_cigars
+    monkeypatch.setattr(TNW, "_redo_cigars",
+                        lambda d, *a: calls.append(d[:, 4].tolist()) or redo_cigars(d, *a))
+    dp = TNW.dispatch(desc, isg, torch.as_tensor(text), torch.as_tensor(seqs), cfg)
+    runs, off, got_meta = TNW.collect(dp, text, seqs)
+    got = [[tuple(r) for r in runs[off[k] : off[k + 1]].tolist()] for k in over]
+    assert got == want
+    assert [sorted(c) for c in calls] == [sorted(desc[over, 4].tolist())]
+    assert np.array_equal(got_meta.T, meta.numpy()[2:4])
 
 
 # ---- kernel C' (ma_tpu's _kernel_v2, under MA_TPU_DP_V2=1)
 @pytest.fixture
 def v2_traces(monkeypatch):
-    """MA_TPU_DP_V2=1 on both sides, with a count of ma_tpu's _kernel_v2
-    traces; jax's caches are cleared around it (ma_tpu reads the variable
+    """MA_TPU_DP_V2=1 for ma_tpu, with a count of its _kernel_v2 traces (the
+    port reads no such variable: on the CPU C and C' share one plain
+    version); jax's caches are cleared around it (ma_tpu reads the variable
     while tracing, and the jitted entry keys only on its static args)."""
     from ma_tpu.ops import dp_fused as JF
 
@@ -263,8 +269,8 @@ def v2_traces(monkeypatch):
     (32, 1024, False, 10, 16), (32, 2048, False, 10, 8),
 ])
 def test_v2_matches_kernel_v2(v2_traces, M, N, is_global, zdrop, P):
-    """The port's banded_align_runs under MA_TPU_DP_V2=1 (C's plain
-    version: the contract is the same) against _kernel_v2 in interpret
+    """The port's banded_align_runs (C's plain version: the contract is the
+    same) against _kernel_v2 in interpret
     mode: runs and all 8 meta rows, lastrow_arg included. N = 1024 and 2048
     run 4 and 8 static tiles of 256; every fourth extension problem traces
     back from its last row."""
@@ -294,41 +300,49 @@ def test_v2_zdrop_empties_the_last_row(v2_traces):
     assert v2_traces == [N]
 
 
-def test_v2_selection_matches_ma_tpu(monkeypatch):
-    """use_v2 is ma_tpu's condition without its PB2 >= 32 term, which holds
-    for every fused bucket up to (256, 4096) (PB2 = 64 there) and for any
-    shape, as _pick_pb_v2 never goes below 32."""
+def test_v2_selection_matches_ma_tpu():
+    """C''s static tile width is ma_tpu's `_pick_tj_v2`."""
     from ma_tpu.ops import dp_fused as JF
     from ma_tpu_torch.ops import dp_fused as TF
 
-    for M in (32, 64, 256):
-        for N in (128, 768, 4096):
-            for sb in (2, 4):
-                assert JF._pick_pb_v2(M, N, sb) >= 32
-    assert JF._pick_pb_v2(256, 4096) == 64
-    assert JF._pick_pb_v2(16384, 65536) == 32
-    for flag in ("0", "1"):
-        monkeypatch.setenv("MA_TPU_DP_V2", flag)
-        for N in list(range(1, 1100)) + [1152, 1536, 2048, 2304, 3072, 3968, 4096, 16384]:
-            tj = JF._pick_tj_v2(N)
-            assert TF._pick_tj_v2(N) == tj
-            want = flag == "1" and N % tj == 0 and N // tj <= 8 and JF._pick_pb_v2(256, N) >= 32
-            assert TF.use_v2(N) == want, N
-    assert all(TF.use_v2(N) for N in range(1, 20_000))  # the tile terms always hold
+    for N in list(range(1, 1100)) + [1152, 1536, 2048, 2304, 3072, 3968, 4096, 16384]:
+        assert TF._pick_tj_v2(N) == JF._pick_tj_v2(N), N
 
 
-@pytest.mark.parametrize("v2", ["0", "1"])
-@pytest.mark.parametrize("N", [1024, 1025, 4096, 4097])
-def test_fused_kernel_routing(monkeypatch, v2, N):
-    """The card's kernel by width: C up to its 1,024 columns (C' there
-    under MA_TPU_DP_V2=1), C' for every wider N whatever the variable says,
-    global or extension. `c_fits` stands for C's scratch-size query, which
-    says N <= 1,024 on the card."""
+@pytest.mark.parametrize("N", [1, 128, 768, 1024, 1025, 2048, 4096, 4097])
+def test_fused_kernel_routing(N):
+    """The card's kernel by width alone: C up to its 1,024 columns, C' for
+    every wider N, global or extension. `c_fits` stands for C's
+    scratch-size query, which says N <= 1,024 on the card."""
     from ma_tpu_torch.ops.dp_fused import fused_kernel
 
-    monkeypatch.setenv("MA_TPU_DP_V2", v2)
-    want = "C'" if v2 == "1" or N > 1024 else "C"
-    assert fused_kernel(N, N <= 1024) == want
+    assert fused_kernel(N, N <= 1024) == ("C" if N <= 1024 else "C'")
+
+
+# each point with its neighbours: every rung edge of the fused ladders (M 32 /
+# 64 / 256, N 128 / 768, M >= 64 at N = 768) and of kernel D's ladders, and
+# past their tops
+BUCKET_EDGES = {
+    (32, 100): (32, 128), (64, 100): (64, 128), (256, 100): (256, 128),
+    (32, 128): (32, 128), (20, 768): (64, 768), (64, 768): (64, 768),
+    (256, 768): (256, 768), (256, 769): (256, 4096), (300, 300): (1024, 768),
+    (16, 1000): (16, 4096), (1024, 50): (1024, 64), (300, 64): (1024, 64),
+    (300, 256): (1024, 256), (4096, 4096): (4096, 4096), (16384, 16384): (16384, 16384),
+    (200, 65536): (256, 65536), (16385, 65537): (32768, 131072),
+}
+
+
+@pytest.mark.parametrize("m,n", list(BUCKET_EDGES))
+def test_bucket_shapes_match_ma_tpu(m, n):
+    """The batch protocol's bucket rule at (m, n) and its neighbours against
+    ma_tpu's `NWAligner._bucket_shape_fused`."""
+    from ma_tpu.pipeline.nw import NWAligner as JNW
+    from ma_tpu_torch.pipeline.nw import bucket_shapes
+
+    pts = [(m + a, n + b) for a in (-1, 0, 1) for b in (-1, 0, 1) if m + a > 0 and n + b > 0]
+    Mb, Nb = bucket_shapes([x for x, _ in pts], [y for _, y in pts])
+    assert list(zip(Mb.tolist(), Nb.tolist())) == [JNW._bucket_shape_fused(x, y) for x, y in pts]
+    assert JNW._bucket_shape_fused(m, n) == BUCKET_EDGES[m, n]
 
 
 @pytest.mark.parametrize("is_global,zdrop,M,P", [

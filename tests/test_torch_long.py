@@ -169,7 +169,7 @@ def _nw_pair(genome, q):
     text = np.concatenate([genome, revcomp_codes(genome)])
     jnw = JNW(jpack, text_dev=jnp.asarray(text), seqs_dev=jnp.asarray(q[None]))
     tnw = TNW(pack, NWConfig(), torch.as_tensor(text), torch.as_tensor(q[None]), text,
-              q[None], None)
+              q[None])
     return jnw, tnw
 
 
@@ -246,8 +246,9 @@ def test_fused_bucket_past_the_fused_ladder(fused_ma_tpu):
     for nw in (jnw, tnw):
         pi = nw._new_problem(*((None, None) if nw is jnw else ()), band=512, is_global=False,
                              q_off=0, q_len=256, t_start=1_000, t_len=769)
-        assert nw._bucket_shape_fused(256, 769) == (256, 4096)
         nw.dispatch_batches()
+        if nw is tnw:  # the batch protocol's (M, N, mode) launch
+            assert [ln[1:4] for ln in tnw._dp.launches] == [(256, 4096, False)]
         nw.collect_batches()
     assert _same_problem(jnw, tnw, pi).max_i == 255
 
@@ -267,8 +268,9 @@ def test_non_fused_bucket_through_kernel_d(fused_ma_tpu):
     for nw in (jnw, tnw):
         pi = nw._new_problem(*((None, None) if nw is jnw else ()), band=40, is_global=True,
                              q_off=0, q_len=len(q), t_start=1_000, t_len=300)
-        assert nw._bucket_shape_fused(len(q), 300) == (1024, 768)
         nw.dispatch_batches()
+        if nw is tnw:  # the batch protocol's (M, N, mode) launch
+            assert [ln[1:4] for ln in tnw._dp.launches] == [(1024, 768, True)]
         nw.collect_batches()
     p = _same_problem(jnw, tnw, pi)
     assert len(p.cigar) > 32

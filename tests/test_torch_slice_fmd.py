@@ -1,10 +1,10 @@
 """The FMD seeding slice end to end on the CPU: ma_tpu_torch's
 Aligner(device="cpu").align_to_sam gives SAM byte-identical to ma_tpu's
 under its reference setting (MA_TPU_DP=fused MA_TPU_FINISH=native) for
-maxSpan (the Default preset), SMEMs (Illumina) and MEMs, each with
-MA_TPU_DP_V2 unset and set to 1 on both sides (ma_tpu then runs its fused
-DP as _kernel_v2, the port as C's plain version on the CPU); and the FMD
-path imports no jax."""
+maxSpan (the Default preset), SMEMs (Illumina) and MEMs, against ma_tpu
+with MA_TPU_DP_V2 unset and set to 1 (ma_tpu then runs its fused DP as
+_kernel_v2; the port, which reads no such variable, makes one SAM per
+technique); and the FMD path imports no jax."""
 import importlib
 import io
 import os
@@ -38,27 +38,18 @@ def _params(technique, pkg="ma_tpu_torch"):
 
 @pytest.fixture(scope="module")
 def port_sams():
-    """The port's SAM per (technique, MA_TPU_DP_V2), with one FMD index."""
+    """The port's SAM per technique, with one FMD index."""
     from ma_tpu_torch.index.fmd_index import FMDIndex
     from ma_tpu_torch.pipeline.aligner import Aligner
 
     pack, reads = _fixture()
     fmd = FMDIndex.build(pack)
     out = {}
-    old = os.environ.get("MA_TPU_DP_V2")
-    try:
-        for v2 in ("0", "1"):
-            os.environ["MA_TPU_DP_V2"] = v2
-            for technique in CASES:
-                al = Aligner(pack, _params(technique), device="cpu", fmd=fmd)
-                buf = io.StringIO()
-                assert al.align_to_sam(iter(reads), buf, batch_size=24, cmd="ma_tpu") == len(reads)
-                out[technique, v2] = buf.getvalue()
-    finally:
-        if old is None:
-            os.environ.pop("MA_TPU_DP_V2", None)
-        else:
-            os.environ["MA_TPU_DP_V2"] = old
+    for technique in CASES:
+        al = Aligner(pack, _params(technique), device="cpu", fmd=fmd)
+        buf = io.StringIO()
+        assert al.align_to_sam(iter(reads), buf, batch_size=24, cmd="ma_tpu") == len(reads)
+        out[technique] = buf.getvalue()
     return out
 
 
@@ -93,8 +84,7 @@ def test_sam_identical_to_ma_tpu(port_sams, technique, v2, monkeypatch):
     sam = out.getvalue()
     assert sam.count("\n") > len(reads)
     assert bool(traced) == (v2 == "1")
-    assert port_sams[technique, v2] == sam
-    assert port_sams[technique, "0"] == port_sams[technique, "1"]
+    assert port_sams[technique] == sam
 
 
 def test_fmd_slice_imports_no_jax():
